@@ -1,0 +1,72 @@
+"""Build the package's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
+``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` beside
+this module; the hash covers the source and the flags, so an edited
+source is rebuilt and never mixed up with an old library. Nothing here
+runs at import time: the CPU tests import every module and have no
+``nvcc``. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc", "build",
+           "load_library"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler, as PyTorch's own extension builder
+    finds the toolkit; raises if there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.access(os.path.join(CUDA_HOME, "bin", "nvcc"),
+                               os.X_OK):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
+    out = _target(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) on "
+                           f"{name}.cu:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see a stub
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    if name not in _LOADED:
+        _LOADED[name] = ctypes.CDLL(str(build(name)))
+    return _LOADED[name]

@@ -1,0 +1,118 @@
+"""QUACK aggregation on the GPU: the wrapper of ``csrc/quack_scan.cu``.
+
+Every round, every sender folds R receiver claim/complaint bitmaps over a
+W-message window into stake-weighted quorum decisions (§4.1/§4.2):
+
+    quacked[s,w] = sum_r stakes[r] * claims[s,r,w]     >= quack_thresh
+    lost[s,w]    = sum_r stakes[r] * complaints[s,r,w] >= dup_thresh & ~quacked
+    prefix[s]    = length of the contiguous quacked prefix
+
+The kernel is CUDA C++ for Hopper, built with ``nvcc`` into a library
+with a plain C interface at first use (``kernels.build``) and launched on
+PyTorch's current stream. Its plain torch version is
+``kernels.ref.quack_reference``; ``kernels.ops.quack_scan`` picks between
+the two by the device of the tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .build import load_library
+
+__all__ = ["quack_scan"]
+
+# stakes are staged in the kernel's (default, 48 KB) shared memory
+_MAX_R = 48 * 1024 // 4
+_MAX_S = 65535             # the grid's y extent
+
+
+@functools.cache
+def _entry():
+    fn = load_library("quack_scan").quack_scan_launch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+           device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"quack_scan: {name} must be a tensor, got "
+                        f"{type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"quack_scan: {name} is on {t.device}, expected "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise TypeError(f"quack_scan: {name} has dtype {t.dtype}, expected "
+                        f"{dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"quack_scan: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"quack_scan: {name} must be contiguous")
+
+
+def quack_scan(claims: torch.Tensor, complaints, stakes: torch.Tensor,
+               quack_thresh: torch.Tensor, dup_thresh, *,
+               compute_lost: bool = True):
+    """Launch the CUDA kernel. All tensors lie on one CUDA device.
+
+    claims/complaints: (S,R,W) bool, contiguous; stakes: (R,) float32;
+    quack_thresh/dup_thresh: () float32 tensors, read on the device (no
+    host sync). Returns ``(quacked (S,W) bool, lost (S,W) bool,
+    prefix (S,) int32)``. ``compute_lost=False`` never reads
+    ``complaints`` or ``dup_thresh`` (either may be ``None``) and returns
+    ``lost=None``. Any W is accepted; the kernel masks the ragged edge.
+    """
+    if not isinstance(claims, torch.Tensor) or claims.device.type != "cuda":
+        raise ValueError("quack_scan: the kernel takes CUDA tensors; use "
+                         "kernels.ops.quack_scan for CPU tensors")
+    if claims.dim() != 3:
+        raise ValueError(f"quack_scan: claims must be (S,R,W), got shape "
+                         f"{tuple(claims.shape)}")
+    s, r, w = claims.shape
+    if not (0 < s <= _MAX_S and 0 < r <= _MAX_R and 0 < w < 2 ** 31):
+        raise ValueError(f"quack_scan: unsupported shape (S,R,W)="
+                         f"{(s, r, w)}")
+    dev = claims.device
+    _check("claims", claims, torch.bool, (s, r, w), dev)
+    _check("stakes", stakes, torch.float32, (r,), dev)
+    _check("quack_thresh", quack_thresh, torch.float32, (), dev)
+    if compute_lost:
+        _check("complaints", complaints, torch.bool, (s, r, w), dev)
+        _check("dup_thresh", dup_thresh, torch.float32, (), dev)
+
+    quacked = torch.empty((s, w), dtype=torch.bool, device=dev)
+    lost = (torch.empty((s, w), dtype=torch.bool, device=dev)
+            if compute_lost else None)
+    prefix = torch.full((s,), w, dtype=torch.int32, device=dev)
+    vecs = [claims, quacked] + ([complaints, lost] if compute_lost else [])
+    vec16 = w % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in vecs)
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _entry()(
+            claims.data_ptr(),
+            complaints.data_ptr() if compute_lost else None,
+            stakes.data_ptr(), quack_thresh.data_ptr(),
+            dup_thresh.data_ptr() if compute_lost else None,
+            quacked.data_ptr(), lost.data_ptr() if compute_lost else None,
+            prefix.data_ptr(), s, r, w, int(compute_lost), int(vec16),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"quack_scan: kernel launch failed with CUDA "
+                           f"error {rc}")
+    quack_scan.launches += 1
+    if not compute_lost:
+        quack_scan.launches_no_lost += 1
+    return quacked, lost, prefix
+
+
+# launches of the kernel, all variants / the compute_lost=False variant
+quack_scan.launches = 0
+quack_scan.launches_no_lost = 0
