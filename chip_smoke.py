@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 1. The card's name and power limit, as nvidia-smi reports them.
-2. Build every CUDA kernel of the main path from ``src/repro_torch/
-   kernels/csrc`` (timed).
+2. Build every CUDA kernel from ``src/repro_torch/kernels/csrc``, after
+   removing every library left by an earlier build: one ``nvcc`` per
+   source, all started together, each timed.
 3. Kernel phase: ``quack_scan``'s CUDA result against its plain torch
    version on the card, both ``compute_lost`` settings, at the main
    path's shape (19, 19, 65536), ragged widths and R = 33 with random
@@ -26,6 +27,26 @@ Phases, each of which raises on failure (exit code non-zero):
    resend, the crash run some resends.
 6. Where a full-size round's time goes: torch.profiler over 60 rounds of
    the crash configuration (kernel time per round, device busy share).
+7. Kernel-API phase (run right after phase 3, so that a fault in a
+   kernel stops the script before the long runs): ``kernels.ops.
+   flash_attention`` and ``kernels.ops.rwkv6_chunked`` at full model
+   widths from ``src/repro/configs/``, TF32 off. Attention in bf16 at
+   granite-8b's causal prefill (F1: B=1, H=32, KV=8, S=4096, D=128), a
+   512-token prefill after a 3,584-token cache, end-aligned (F2), and
+   mixtral-8x22b's sliding window 4096 at S=8192, H=48 (F3, checked on
+   its last 512 query rows); F1's widths at S=2048 in f32 (F4). RWKV6 at
+   rwkv6-7b's widths (H=64, D=64), B=2, T=4096, f32 (R1) and bf16 (R2).
+   Each shape runs once through the op with the launch counters at 0;
+   every output must agree with the plain torch version on the card
+   (allclose: attention bf16 atol 1e-5, rtol 1.6e-2, f32 atol = rtol =
+   2e-6; RWKV6 1e-4), attention on four input sets. Controls show that
+   the attention tolerance catches a wrong result: on the last 512 query
+   rows, plain versions with one deliberate fault (P rounded to bf16, the
+   oldest key or the oldest 64 keys of each row dropped, TF32 products in
+   f32) must each put entries over it, and the same plain version with no
+   fault none. Then the kernel's device time (CUDA graph over input sets
+   larger than the L2), the plain version's, SDPA's for attention, and
+   the bound.
 
 The last lines are the ``kernels`` JSON line, and then
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -35,6 +56,7 @@ result when there is no CUDA card or when the package is not beside it.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,16 +69,62 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+L2_BYTES = 50e6
 SHAPE = (19, 19, 65536)          # (n_s, n_r, M) of the full-size phase
 # rounds of the full-size runs: failure-free completes at round 869; the
 # crash run is deterministic and completes at round 63,171
 STEPS_FREE = 900
 STEPS_CRASH = 64000
-CU_SOURCE = "src/repro_torch/kernels/csrc/quack_scan.cu"
-TPU_KERNEL = "src/repro/kernels/quack_scan.py:84"
+# each kernel of the JSON line: its source, and the TPU kernel it replaces
+CSRC = "src/repro_torch/kernels/csrc"
+KERNEL_FILES = {
+    "quack_scan": (f"{CSRC}/quack_scan.cu",
+                   "src/repro/kernels/quack_scan.py:84"),
+    "quack_scan_no_lost": (f"{CSRC}/quack_scan.cu",
+                           "src/repro/kernels/quack_scan.py:84"),
+    "flash_attention": (f"{CSRC}/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:72"),
+    "rwkv6_chunked": (f"{CSRC}/rwkv6_scan.cu",
+                      "src/repro/kernels/rwkv6_scan.py:63"),
+}
+# phase 7 shapes: (name, source, (B, H, KV, Sq, Skv, D), dtype, window,
+# query rows checked against the plain version: None = all)
+ATTN_SHAPES = [
+    ("F1", "granite-8b, src/repro/configs/granite_8b.py:10-11",
+     (1, 32, 8, 4096, 4096, 128), torch.bfloat16, 0, None),
+    ("F2", "granite-8b, 512-token prefill after a 3,584-token cache",
+     (1, 32, 8, 512, 4096, 128), torch.bfloat16, 0, None),
+    ("F3", "mixtral-8x22b, src/repro/configs/mixtral_8x22b.py:11-14",
+     (1, 48, 8, 8192, 8192, 128), torch.bfloat16, 4096, 512),
+    ("F4", "granite-8b widths in f32", (1, 32, 8, 2048, 2048, 128),
+     torch.float32, 0, None),
+]
+# attention tolerances (atol, rtol), as np.allclose applies them. bf16:
+# a bf16 output step is at most 2**-7 of its value, so rtol is two steps;
+# atol covers outputs near 0, where the order of the f32 sums shows. Both
+# sit between the sound readings and the controls' (PERF.md). f32: the
+# JAX tests' 2e-6.
+ATTN_TOL = {torch.bfloat16: (1e-5, 1.6e-2), torch.float32: (2e-6, 2e-6)}
+CHECK_SETS = 4        # input sets each attention shape is checked on
+CONTROL_ROWS = 512    # query rows, the last of each shape, of the controls
+# the faults of the controls; "none" is the control's own plain version,
+# which must pass. TF32 keeps a bf16 input exact, so it is an f32 fault.
+CONTROLS = {torch.bfloat16: ("none", "P in bf16", "oldest key dropped",
+                             "oldest 64 keys dropped"),
+            torch.float32: ("none", "P in bf16", "oldest key dropped",
+                            "oldest 64 keys dropped", "TF32 products")}
+# (name, source, (B, H, T, D), dtype); chunk 128
+RWKV_SHAPES = [
+    ("R1", "rwkv6-7b, src/repro/configs/rwkv6_7b.py:10-12",
+     (2, 64, 4096, 64), torch.float32),
+    ("R2", "rwkv6-7b widths, bf16 inputs", (2, 64, 4096, 64),
+     torch.bfloat16),
+]
+RWKV_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -195,6 +263,294 @@ def kernel_phase(dev):
     return result
 
 
+# ------------------------------------------------------------ phase 7
+def attn_inputs(shape, dtype, gen):
+    b, h, kv, sq, skv, d = shape
+    return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
+                 for s in ((b, h, sq, d), (b, kv, skv, d), (b, kv, skv, d)))
+
+
+def rwkv_inputs(shape, dtype, gen):
+    """As tests/test_kernels.py draws them: r, k, v, u normal (times 0.5
+    in f32), the decay w in (0.45, 0.95)."""
+    b, h, t, d = shape
+    scale = 0.5 if dtype == torch.float32 else 1.0
+
+    def normal(s):
+        return torch.randn(s, generator=gen, device="cuda") * scale
+
+    r, k, v = normal(shape), normal(shape), normal(shape)
+    w = torch.sigmoid(torch.randn(shape, generator=gen, device="cuda"))
+    return tuple(x.to(dtype) for x in (r, k, v, w * 0.5 + 0.45,
+                                       normal((h, d))))
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def attn_pairs(sq: int, skv: int, window: int) -> int:
+    """(query, key) pairs a causal head computes: its unmasked pairs; a
+    row with none averages all Skv keys."""
+    pos = skv - sq + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos, skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else 0
+    n = np.maximum(hi - lo + 1, 0)
+    return int(np.where(n > 0, n, skv).sum())
+
+
+def attn_bound(shape, dtype, window):
+    """Least time: 4 D FLOPs per computed pair (two products) at the
+    type's peak, vs q, k, v read once and o written once."""
+    b, h, kv, sq, skv, d = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    moved = size * (2 * b * h * sq * d + 2 * b * kv * skv * d)
+    flops = 4 * d * attn_pairs(sq, skv, window) * b * h
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return _bound(moved, flops, peak)
+
+
+def rwkv_bound(shape, dtype):
+    """Least time: the f32 operations the recurrence needs per step, 5
+    per state entry (r . S; S = w S + k v) and 5 D for the u bonus, which
+    factors as y_j += v_j c with c = sum_i r_i u_i k_i, vs r, k, v, w, u
+    read once and the f32 y written once."""
+    b, h, t, d = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    moved = size * (4 * b * h * t * d + h * d) + 4 * b * h * t * d
+    return _bound(moved, 5 * (d * d + d) * t * b * h, F32_FLOPS)
+
+
+def _bound(moved, flops, peak):
+    t_bytes, t_ops = moved / HBM_BPS, flops / peak
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3, moved=moved, flops=flops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def over_tolerance(got, want, atol, rtol):
+    """(entries outside atol, rtol, as np.allclose counts them, or not
+    finite; max |difference|; largest share of the tolerance used), in
+    f32."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    allowed = atol + rtol * w.abs()
+    bad = (diff > allowed) | ~torch.isfinite(g)
+    return int(bad.sum()), float(diff.max()), float((diff / allowed).max())
+
+
+def attention_control(q, k, v, window, fault):
+    """Plain causal attention for queries at the last positions of the
+    keys, with one deliberate fault: "P in bf16" rounds the probabilities to
+    bf16 before the product with v; "oldest key dropped" and "oldest 64
+    keys dropped" mask the first unmasked keys of every row (the window
+    moved in by one key or one tile); "TF32 products" lets both products
+    use TF32; "none" is the same computation without a fault."""
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    pos = skv - sq + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    lo = (pos - window + 1).clamp(min=0) if window > 0 else 0
+    drop = {"oldest key dropped": 1, "oldest 64 keys dropped": 64}
+    ok = (kpos <= pos) & (kpos >= lo + drop.get(fault, 0))
+    torch.backends.cuda.matmul.allow_tf32 = fault == "TF32 products"
+    try:
+        qr = q.reshape(b, n_kv, h // n_kv, sq, d).float()
+        s = torch.einsum("bkgqd,bksd->bkgqs", qr, k.float()) / math.sqrt(d)
+        s = s.masked_fill(~ok, -1e30)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        denom = p.sum(-1, keepdim=True)
+        if fault == "P in bf16":
+            p = p.bfloat16().float()
+        o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float()) / denom
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def median(times):
+    return times[len(times) // 2]
+
+
+def input_sets(first, make, least=2):
+    """``first`` plus fresh sets, at least ``least`` in all, until together
+    they exceed the L2."""
+    n = max(least, math.ceil(1.25 * L2_BYTES / nbytes(first)))
+    return [first] + [make() for _ in range(n - 1)]
+
+
+def sdpa_fn(sq, skv, window, group):
+    """One PyTorch call for the same attention (the yardstick; the port
+    never calls it). Its ``is_causal`` is top-left aligned, so end-aligned
+    or windowed shapes pass the mask, with k, v expanded to H heads
+    beforehand (not timed)."""
+    import torch.nn.functional as F
+
+    if sq == skv and window == 0:
+        return (lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)), lambda k: k
+    pos = skv - sq + torch.arange(sq, device="cuda")[:, None]
+    kpos = torch.arange(skv, device="cuda")[None, :]
+    mask = kpos <= pos
+    if window > 0:
+        mask &= kpos > pos - window
+    return (lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)), lambda k: k.repeat_interleave(group, 1)
+
+
+def api_phase(dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ref import mha_reference, rwkv6_reference
+    from repro_torch.kernels.rwkv6_scan import rwkv6_chunked as rk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[api] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    attn = {n: attn_inputs(shp, dt, gen) for n, _, shp, dt, _, _ in
+            ATTN_SHAPES}
+    rwkv = {n: rwkv_inputs(shp, dt, gen) for n, _, shp, dt in RWKV_SHAPES}
+
+    # the phase's path: every shape once through the public ops, counted
+    torch.cuda.synchronize()
+    fa.launches = rk.launches = 0
+    out = {}
+    for name, _, _, _, window, _ in ATTN_SHAPES:
+        out[name] = ops.flash_attention(*attn[name], causal=True,
+                                        window=window)
+    for name, *_ in RWKV_SHAPES:
+        out[name] = ops.rwkv6_chunked(*rwkv[name], chunk=128)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.launches, "rwkv6_chunked": rk.launches}
+    log(f"[api] launches in the phase's path: {launches}")
+    if launches != {"flash_attention": len(ATTN_SHAPES),
+                    "rwkv6_chunked": len(RWKV_SHAPES)}:
+        raise AssertionError(f"api: expected one launch per shape, got "
+                             f"{launches}")
+
+    result = {}
+    for name, src, shape, dtype, window, rows in ATTN_SHAPES:
+        b, h, kv, sq, skv, d = shape
+        atol, rtol = ATTN_TOL[dtype]
+
+        def plain(q, k, v, window=window):
+            return mha_reference(q, k, v, causal=True, window=window)
+
+        def kern(q, k, v, window=window):
+            return ops.flash_attention(q, k, v, causal=True, window=window)
+
+        def head(q, k, v, rows=rows):      # the query rows checked
+            return (q if rows is None else q[:, :, -rows:].contiguous(),
+                    k, v)
+
+        checked = "all rows" if rows is None else f"last {rows} query rows"
+        sets = input_sets(attn[name],
+                          lambda: attn_inputs(shape, dtype, gen), CHECK_SETS)
+        readings = []                    # the phase's output, then fresh
+        for i, a in enumerate(sets[:CHECK_SETS]):
+            got = out.pop(name) if i == 0 else kern(*a)
+            got = got if rows is None else got[:, :, -rows:]
+            readings.append(over_tolerance(got, plain(*head(*a)), atol,
+                                           rtol))
+            del got
+        bad = sum(n for n, _, _ in readings)
+        err = max(e for _, e, _ in readings)
+        log(f"[api] flash_attention {name} vs plain on {CHECK_SETS} input "
+            f"sets ({checked}), atol {atol:g} rtol {rtol:g}: entries over "
+            f"tolerance {[n for n, _, _ in readings]}, max |err| "
+            f"{[f'{e:.3e}' for _, e, _ in readings]}, largest share of the "
+            f"tolerance used {[f'{u:.3f}' for _, _, u in readings]}")
+        q, k, v = sets[0]
+        q = q[:, :, -CONTROL_ROWS:].contiguous()
+        want = plain(q, k, v)
+        caught = {}
+        for fault in CONTROLS[dtype]:
+            n, e, u = over_tolerance(attention_control(q, k, v, window, fault),
+                                     want, atol, rtol)
+            caught[fault] = n
+            log(f"[api] control {name} ({fault}, last {CONTROL_ROWS} query "
+                f"rows): {n} entries over tolerance, max |err| {e:.3e}, "
+                f"largest share of the tolerance used {u:.3f}")
+        del q, k, v, want
+        if caught.pop("none") or not all(caught.values()):
+            raise AssertionError(f"api: the {name} tolerance does not tell "
+                                 f"the controls apart: {caught}")
+        k_t = graph_ms(kern, sets, len(sets), replays=1, windows=3)
+        p_t = graph_ms(plain, [head(*s) for s in sets], len(sets),
+                       replays=1, windows=3)
+        sdpa, expand = sdpa_fn(sq, skv, window, h // kv)
+        l_t = graph_ms(sdpa, [(q, expand(k), expand(v)) for q, k, v in sets],
+                       len(sets), replays=1, windows=3)
+        n_sets = len(sets)
+        del sets
+        torch.cuda.empty_cache()
+        bnd = attn_bound(shape, dtype, window)
+        ms = median(k_t)
+        log(f"[api] flash_attention {name} ({src}) (B,H,KV,Sq,Skv,D)="
+            f"{shape} {str(dtype)[6:]} causal window={window}: {bad} "
+            f"entries over tolerance ({checked}), max |err| {err:.3e}; "
+            f"{ms:.4f} ms/call median of {len(k_t)} windows (min "
+            f"{k_t[0]:.4f}, max {k_t[-1]:.4f}), "
+            f"{bnd['flops'] / ms / 1e9:.2f} TFLOP/s; plain torch "
+            f"{median(p_t):.4f} ms ({checked}); SDPA {median(l_t):.4f} ms; "
+            f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+            f"({bnd['flops'] / 1e9:.1f} GFLOP, {bnd['moved'] / 1e6:.1f} MB), "
+            f"{bnd['bound_ms'] / ms:.1%} of it; {n_sets} input sets")
+        result[name] = dict(ms=ms, plain_ms=median(p_t),
+                            library_ms=median(l_t), mismatches=bad,
+                            max_abs_err=err, **bnd)
+
+    for name, src, shape, dtype in RWKV_SHAPES:
+        got = out.pop(name)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want, _ = rwkv6_reference(*rwkv[name])
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        bad, err, _ = over_tolerance(got, want, RWKV_TOL, RWKV_TOL)
+        del got, want
+        sets = input_sets(rwkv[name], lambda: rwkv_inputs(shape, dtype, gen))
+        k_t = graph_ms(lambda *a: ops.rwkv6_chunked(*a, chunk=128), sets,
+                       2 * len(sets), replays=3, windows=5)
+        del sets
+        bnd = rwkv_bound(shape, dtype)
+        ms = median(k_t)
+        log(f"[api] rwkv6_chunked {name} ({src}) (B,H,T,D)={shape} "
+            f"{str(dtype)[6:]}: {bad} entries over tolerance {RWKV_TOL}, "
+            f"max |err| {err:.3e}; {ms:.4f} ms/call median of {len(k_t)} "
+            f"windows (min {k_t[0]:.4f}, max {k_t[-1]:.4f}); plain torch "
+            f"{plain_ms:.1f} ms (one call, CUDA events, a {shape[2]}-step "
+            f"loop); bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+            f"({bnd['flops'] / 1e9:.1f} GFLOP, {bnd['moved'] / 1e6:.1f} MB), "
+            f"{bnd['bound_ms'] / ms:.1%} of it")
+        result[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                            mismatches=bad, max_abs_err=err, **bnd)
+
+    del attn, rwkv
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bad = {n: r["mismatches"] for n, r in result.items() if r["mismatches"]}
+    if bad:
+        raise AssertionError(f"api: kernel disagrees with its plain version "
+                             f"({bad} entries over tolerance)")
+    entries = {}
+    for kernel, first, names in (
+            ("flash_attention", "F1", [n for n, *_ in ATTN_SHAPES]),
+            ("rwkv6_chunked", "R1", [n for n, *_ in RWKV_SHAPES])):
+        e = {k: result[first][k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")}
+        e.update(launches=launches[kernel],
+                 mismatches=sum(result[n]["mismatches"] for n in names),
+                 max_abs_err=max(result[n]["max_abs_err"] for n in names))
+        entries[kernel] = e
+    return entries
+
+
 # --------------------------------------------------------- phases 4, 5
 def _launches():
     from repro_torch.kernels.quack_scan import quack_scan
@@ -331,44 +687,69 @@ def profile_rounds(rounds: int, per_round_ms: float) -> None:
             f" {e.count / rounds:5.1f} launches/round  {e.key[:90]}")
 
 
+def build_all() -> None:
+    """Phase 2: every source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+
+    for stale in build.BUILD_DIR.glob("lib*-*.so"):
+        stale.unlink()                       # build from source, always
+
+    def timed(name):
+        t0 = time.perf_counter()
+        lib = build.build(name)
+        return lib, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(build.KERNELS)) as pool:
+        jobs = [(name, pool.submit(timed, name)) for name in build.KERNELS]
+        for name, job in jobs:
+            lib, sec = job.result()
+            log(f"[build] {lib.name} built with nvcc in {sec:.2f} s")
+    log(f"[build] {len(jobs)} kernels in {time.perf_counter() - t0:.2f} s "
+        f"wall")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels import build
-
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"[card] {card}")
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    for stale in build.BUILD_DIR.glob("libquack_scan-*.so"):
-        stale.unlink()                       # build from source, always
-    t0 = time.perf_counter()
-    lib = build.build("quack_scan")
-    log(f"[build] {lib.name} built with nvcc in "
-        f"{time.perf_counter() - t0:.2f} s")
-
+    build_all()
     kern = kernel_phase(dev)
+    t0 = time.perf_counter()
+    api = api_phase(dev)
+    log(f"[time] kernel-API phase {time.perf_counter() - t0:.1f} s")
     path_phase()
     launches, per_round_ms = full_phase(STEPS_FREE, STEPS_CRASH)
     profile_rounds(60, per_round_ms)
 
+    rows = [("quack_scan", dict(kern[True], launches=launches[0],
+                                library_ms=None)),
+            ("quack_scan_no_lost", dict(kern[False], launches=launches[1],
+                                        library_ms=None)),
+            ("flash_attention", api["flash_attention"]),
+            ("rwkv6_chunked", api["rwkv6_chunked"])]
     entries = []
-    for compute_lost, name, n in ((True, "quack_scan", launches[0]),
-                                  (False, "quack_scan_no_lost",
-                                   launches[1])):
-        k = kern[compute_lost]
+    for name, k in rows:
+        source, replaces = KERNEL_FILES[name]
         entries.append(dict(
-            name=name, route="cuda", source=CU_SOURCE, replaces=TPU_KERNEL,
-            launches=n, max_abs_err=k["max_abs_err"],
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=k["launches"], max_abs_err=k["max_abs_err"],
             mismatches=k["mismatches"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-            library_ms=None))
+            library_ms=k["library_ms"]))
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError("a kernel of the main path never launched")
+    log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,17 @@
 """Hand-written GPU kernels for the perf-critical layers.
 
-``quack_scan``: the QUACK quorum aggregation of every protocol round, in
-CUDA C++ (``csrc/quack_scan.cu``), with its plain torch version
-``ref.quack_reference``. Each op in ``ops`` runs the kernel on CUDA
-tensors and the plain version on CPU tensors.
+Each op in ``ops`` runs its CUDA C++ kernel on CUDA tensors and its plain
+torch version (``ref``) on CPU tensors:
+
+- ``quack_scan``: the QUACK quorum aggregation of every protocol round
+  (``csrc/quack_scan.cu``, plain ``ref.quack_reference``);
+- ``flash_attention``: causal / sliding-window / grouped-query attention
+  (``csrc/flash_attention.cu``, plain ``ref.mha_reference``);
+- ``rwkv6_chunked``: the RWKV6 recurrence (``csrc/rwkv6_scan.cu``, plain
+  ``ref.rwkv6_reference``).
 """
 
 from . import ref
-from .ops import quack_scan
+from .ops import flash_attention, quack_scan, rwkv6_chunked
 
-__all__ = ["quack_scan", "ref"]
+__all__ = ["quack_scan", "flash_attention", "rwkv6_chunked", "ref"]

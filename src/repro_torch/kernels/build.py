@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` beside
-this module; the hash covers the source and the flags, so an edited
-source is rebuilt and never mixed up with an old library. Nothing here
+this module; the hash covers the source, every ``csrc/*.cuh`` header it
+may include, and the flags, so an edited source or header is rebuilt and
+never mixed up with an old library. Nothing here
 runs at import time: the CPU tests import every module and have no
 ``nvcc``. A failed build raises.
 """
@@ -18,13 +19,15 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc", "build",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "nvcc", "build",
            "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# every source under csrc/ builds a library
+KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -44,8 +47,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,104 @@
+"""Attention on the GPU: the wrapper of ``csrc/flash_attention.cu``.
+
+Online-softmax attention over q (B,H,Sq,D) and k, v (B,KV,Skv,D), causal
+and/or with a sliding window, query head h reading kv head h // (H/KV),
+query positions aligned to the end of the keys (Skv - Sq + i), masked
+scores -1e30, f32 sums, output in q's dtype.
+
+The kernel is CUDA C++ for Hopper, built with ``nvcc`` at first use
+(``kernels.build``) and launched on PyTorch's current stream. Its plain
+torch version is ``kernels.ref.mha_reference``; ``kernels.ops.
+flash_attention`` picks between the two by the device of the tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from .build import load_library
+from .checks import check_tensor, require_cuda
+
+__all__ = ["flash_attention", "check_attention_args"]
+
+_HEAD_DIMS = (16, 32, 64, 128)
+_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BH = 65535            # the grid's y extent
+
+
+@functools.cache
+def _entry():
+    fn = load_library("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_attention_args(q, k, v, block_q: int, block_kv: int) -> None:
+    """The JAX kernel's contract, raised as ``ValueError``: q (B,H,Sq,D),
+    k and v (B,KV,Skv,D) with H % KV == 0, Sq a multiple of
+    min(block_q, Sq) and Skv a multiple of min(block_kv, Skv)."""
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"flash_attention: expected q (B,H,Sq,D) and k, v "
+                         f"(B,KV,Skv,D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    bk, n_kv, skv, dk = k.shape
+    if bk != b or dk != d or min(b, h, sq, d, n_kv, skv) <= 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not fit together")
+    if h % n_kv:
+        raise ValueError(f"flash_attention: H = {h} is not a multiple of "
+                         f"KV = {n_kv}")
+    bq, bkv = min(block_q, sq), min(block_kv, skv)
+    if bq <= 0 or bkv <= 0 or sq % bq or skv % bkv:
+        raise ValueError(f"flash_attention: Sq = {sq} and Skv = {skv} must "
+                         f"be multiples of the blocks {bq} and {bkv}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, block_q: int = 128,
+                    block_kv: int = 128) -> torch.Tensor:
+    """Launch the CUDA kernel. All tensors lie on one CUDA device, are
+    contiguous, and share one dtype, float32 or bfloat16; D is 16, 32, 64
+    or 128. ``block_q``/``block_kv`` only set the divisibility contract:
+    the kernel tiles by 64 and masks ragged edges itself. Returns
+    (B,H,Sq,D) in q's dtype."""
+    require_cuda("flash_attention", q)
+    check_attention_args(q, k, v, block_q, block_kv)
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in "
+                         f"{_HEAD_DIMS}")
+    if q.dtype not in _BF16:
+        raise TypeError(f"flash_attention: dtype {q.dtype} is not float32 "
+                        f"or bfloat16")
+    if b * h > _MAX_BH:
+        raise ValueError(f"flash_attention: B*H = {b * h} exceeds {_MAX_BH}")
+    check = functools.partial(check_tensor, "flash_attention", align=16)
+    check("q", q, q.dtype, q.shape, q.device)
+    check("k", k, q.dtype, k.shape, q.device)
+    check("v", v, q.dtype, k.shape, q.device)
+    # a window at least Skv masks nothing; clamping keeps int32 positions
+    window = min(int(window), skv) if window > 0 else 0
+
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      b, h, n_kv, sq, skv, d, int(bool(causal)), window,
+                      math.sqrt(d), _BF16[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
+                           f"error {rc}")
+    flash_attention.launches += 1
+    return o
+
+
+# launches of the kernel
+flash_attention.launches = 0

@@ -22,6 +22,7 @@ import functools
 import torch
 
 from .build import load_library
+from .checks import check_tensor, require_cuda
 
 __all__ = ["quack_scan"]
 
@@ -39,24 +40,6 @@ def _entry():
     return fn
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"quack_scan: {name} must be a tensor, got "
-                        f"{type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"quack_scan: {name} is on {t.device}, expected "
-                         f"{device}")
-    if t.dtype != dtype:
-        raise TypeError(f"quack_scan: {name} has dtype {t.dtype}, expected "
-                        f"{dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"quack_scan: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"quack_scan: {name} must be contiguous")
-
-
 def quack_scan(claims: torch.Tensor, complaints, stakes: torch.Tensor,
                quack_thresh: torch.Tensor, dup_thresh, *,
                compute_lost: bool = True):
@@ -69,9 +52,7 @@ def quack_scan(claims: torch.Tensor, complaints, stakes: torch.Tensor,
     ``complaints`` or ``dup_thresh`` (either may be ``None``) and returns
     ``lost=None``. Any W is accepted; the kernel masks the ragged edge.
     """
-    if not isinstance(claims, torch.Tensor) or claims.device.type != "cuda":
-        raise ValueError("quack_scan: the kernel takes CUDA tensors; use "
-                         "kernels.ops.quack_scan for CPU tensors")
+    require_cuda("quack_scan", claims)
     if claims.dim() != 3:
         raise ValueError(f"quack_scan: claims must be (S,R,W), got shape "
                          f"{tuple(claims.shape)}")
@@ -80,12 +61,13 @@ def quack_scan(claims: torch.Tensor, complaints, stakes: torch.Tensor,
         raise ValueError(f"quack_scan: unsupported shape (S,R,W)="
                          f"{(s, r, w)}")
     dev = claims.device
-    _check("claims", claims, torch.bool, (s, r, w), dev)
-    _check("stakes", stakes, torch.float32, (r,), dev)
-    _check("quack_thresh", quack_thresh, torch.float32, (), dev)
+    check = functools.partial(check_tensor, "quack_scan")
+    check("claims", claims, torch.bool, (s, r, w), dev)
+    check("stakes", stakes, torch.float32, (r,), dev)
+    check("quack_thresh", quack_thresh, torch.float32, (), dev)
     if compute_lost:
-        _check("complaints", complaints, torch.bool, (s, r, w), dev)
-        _check("dup_thresh", dup_thresh, torch.float32, (), dev)
+        check("complaints", complaints, torch.bool, (s, r, w), dev)
+        check("dup_thresh", dup_thresh, torch.float32, (), dev)
 
     quacked = torch.empty((s, w), dtype=torch.bool, device=dev)
     lost = (torch.empty((s, w), dtype=torch.bool, device=dev)

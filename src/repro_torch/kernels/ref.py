@@ -3,9 +3,13 @@ oracle the kernels are held against on the card)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["quack_reference"]
+__all__ = ["quack_reference", "mha_reference", "rwkv6_reference"]
+
+MASK_VALUE = -1e30      # the masked score of the JAX package's attention
 
 
 def _weigh(bitmaps: torch.Tensor, stakes: torch.Tensor) -> torch.Tensor:
@@ -39,3 +43,53 @@ def quack_reference(claims, complaints, stakes, quack_thresh, dup_thresh,
         lost = (_weigh(complaints, stakes) >= dup_thresh) & ~quacked
     prefix = torch.cumprod(quacked.to(torch.int32), dim=1).sum(dim=1)
     return quacked, lost, prefix.to(torch.int32)
+
+
+def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
+    """Attention oracle. q: (B,H,Sq,D); k,v: (B,KV,Skv,D), H % KV == 0;
+    query head h reads kv head h // (H/KV).
+
+    Returns (B,H,Sq,D) in q's dtype. Query i sits at position Skv - Sq + i
+    (aligned to the end, as in a prefill after a cache); key j is masked
+    with -1e30 when ``causal`` and j > position, or when ``window > 0`` and
+    j <= position - window. Scores and softmax are f32, so a row whose
+    keys are all masked gets the uniform mean of v.
+    """
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    qr = q.reshape(b, n_kv, h // n_kv, sq, d).to(torch.float32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qr, k.to(torch.float32))
+    s = s / math.sqrt(d)
+    q_pos = (skv - sq) + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window > 0:
+        ok &= k_pos > q_pos - window
+    p = torch.softmax(s.masked_fill(~ok, MASK_VALUE), dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def rwkv6_reference(r, k, v, w, u, state=None):
+    """RWKV6 (Finch) recurrence, one step at a time, in f32 from any type.
+
+    r,k,v,w: (B,H,T,D), w the per-step decay in (0,1); u: (H,D) bonus;
+    state: (B,H,D,D) or ``None`` for zeros. Returns ``(y (B,H,T,D) f32,
+    final_state (B,H,D,D) f32)``::
+
+      y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+      S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    """
+    b, h, t, d = r.shape
+    r, k, v, w = (x.to(torch.float32) for x in (r, k, v, w))
+    bonus = u.to(torch.float32)[None, :, :, None]
+    S = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if state is None else state.to(torch.float32))
+    y = torch.empty((b, h, t, d), dtype=torch.float32, device=r.device)
+    for i in range(t):
+        kv = k[:, :, i, :, None] * v[:, :, i, None, :]
+        y[:, :, i] = torch.einsum("bhk,bhkv->bhv", r[:, :, i], S + bonus * kv)
+        S = w[:, :, i, :, None] * S + kv
+    return y, S

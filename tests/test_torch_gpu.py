@@ -7,8 +7,13 @@ runs where the card is:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 Every test decides inside itself whether a card exists and skips where
-there is none. Comparisons are bit-exact: the kernel sums stakes in the
-same order as its plain version, and the simulator's state is int32/bool.
+there is none. ``quack_scan`` and the simulator compare bit for bit: the
+kernel sums stakes in the same order as its plain version, and the
+simulator's state is int32/bool. The attention and RWKV6 kernels sum in
+another order than their plain versions, so they are held to tolerances:
+attention 2e-6 in f32 (the JAX tests'), in bf16 atol 1e-5 and rtol 1.6e-2
+(two bf16 steps, the limit ``chip_smoke.py`` measures against controls),
+RWKV6 1e-4.
 """
 
 import numpy as np
@@ -18,8 +23,12 @@ import torch
 from repro_torch.core import FailureScenario, RSMConfig, SimConfig
 from repro_torch.core import simulator as tsim
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import \
+    flash_attention as cuda_flash_attention
 from repro_torch.kernels.quack_scan import quack_scan as cuda_quack_scan
-from repro_torch.kernels.ref import quack_reference
+from repro_torch.kernels.ref import (mha_reference, quack_reference,
+                                     rwkv6_reference)
+from repro_torch.kernels.rwkv6_scan import rwkv6_chunked as cuda_rwkv6_chunked
 
 pytestmark = pytest.mark.gpu
 
@@ -107,3 +116,123 @@ def test_cuda_run_matches_cpu_run():
     for f in tsim.StepMetrics._fields:
         a, b = getattr(gpu.metrics, f), getattr(cpu.metrics, f)
         assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+# (B, H, KV, Sq, Skv, D, causal, window, block): the JAX test grid, the
+# window grid with and without the causal mask, an end-aligned prefill
+# after a cache (with and without a window), causal Sq > Skv (rows that
+# see no key), and ragged tiles (Sq = 96, Skv = 160 are not multiples of
+# the kernel's 64)
+ATTN_CASES = (
+    [(2, 4, 2, 128, 128, 64, True, 0, 64), (1, 4, 4, 256, 256, 32, True, 0, 64),
+     (2, 4, 1, 128, 256, 64, True, 0, 64), (1, 8, 2, 64, 64, 128, True, 0, 64)]
+    + [(1, 2, 2, 128, 128, 64, c, w, 64) for c in (True, False)
+       for w in (32, 64)]
+    + [(1, 4, 1, 128, 1024, 128, True, 0, 128),
+       (1, 4, 1, 128, 1024, 128, True, 300, 128),
+       (1, 4, 2, 192, 64, 64, True, 0, 64),
+       (1, 2, 1, 96, 160, 16, True, 48, 32)])
+RWKV_CASES = [(2, 2, 64, 32, 16), (1, 4, 128, 64, 64), (2, 1, 256, 16, 128),
+              (1, 2, 64, 64, 64), (1, 2, 96, 128, 32)]
+ATTN_TOL = {torch.float32: (2e-6, 2e-6), torch.bfloat16: (1e-5, 1.6e-2)}
+
+
+def _attn(b, h, kv, sq, skv, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(s, dtype=np.float32)).to(
+        dtype).cuda() for s in ((b, h, sq, d), (b, kv, skv, d),
+                                (b, kv, skv, d))]
+
+
+def _rwkv(b, h, t, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    shp = (b, h, t, d)
+    r, k, v = (rng.standard_normal(shp, dtype=np.float32) * 0.5
+               for _ in range(3))
+    w = 1 / (1 + np.exp(-rng.standard_normal(shp, dtype=np.float32)))
+    u = rng.standard_normal((h, d), dtype=np.float32) * 0.5
+    return [torch.as_tensor(x).to(dtype).cuda()
+            for x in (r, k, v, w * 0.5 + 0.45, u)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,blk", ATTN_CASES,
+                         ids=["x".join(map(str, c)) for c in ATTN_CASES])
+def test_flash_attention_kernel_matches_plain(b, h, kv, sq, skv, d, causal,
+                                              window, blk, dtype):
+    _need_cuda()
+    q, k, v = _attn(b, h, kv, sq, skv, d, dtype, seed=sq + skv + d)
+    want = mha_reference(q, k, v, causal=causal, window=window)
+    before = cuda_flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=blk, block_kv=blk)
+    torch.cuda.synchronize()
+    assert cuda_flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, sq, d)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,d,chunk", RWKV_CASES,
+                         ids=["x".join(map(str, c)) for c in RWKV_CASES])
+def test_rwkv6_kernel_matches_plain(b, h, t, d, chunk, dtype):
+    _need_cuda()
+    args = _rwkv(b, h, t, d, dtype, seed=t + d)
+    want, _ = rwkv6_reference(*args)
+    before = cuda_rwkv6_chunked.launches
+    got = ops.rwkv6_chunked(*args, chunk=chunk)
+    again = ops.rwkv6_chunked(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert cuda_rwkv6_chunked.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (b, h, t, d)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again)          # no atomics: run to run exact
+
+
+def test_attention_and_rwkv6_ops_never_fall_back(monkeypatch):
+    _need_cuda()
+
+    def boom(*_a, **_k):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    monkeypatch.setattr(ops, "mha_reference", boom)
+    monkeypatch.setattr(ops, "rwkv6_reference", boom)
+    ops.flash_attention(*_attn(1, 2, 1, 64, 64, 32, torch.bfloat16, 1))
+    ops.rwkv6_chunked(*_rwkv(1, 2, 64, 32, torch.float32, 1), chunk=32)
+    torch.cuda.synchronize()
+
+
+def test_flash_attention_kernel_rejects_bad_inputs():
+    _need_cuda()
+    q, k, v = _attn(1, 2, 1, 64, 64, 32, torch.float32, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                             v)
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_flash_attention(*_attn(1, 2, 1, 64, 64, 48, torch.float32, 2))
+    with pytest.raises(ValueError, match="multiple of KV"):
+        cuda_flash_attention(*_attn(1, 3, 2, 64, 64, 32, torch.float32, 2))
+    with pytest.raises(ValueError, match="expected cuda"):
+        cuda_flash_attention(q, k.cpu(), v)
+
+
+def test_rwkv6_kernel_rejects_bad_inputs():
+    _need_cuda()
+    r, k, v, w, u = _rwkv(1, 2, 64, 32, torch.float32, 3)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_rwkv6_chunked(r, k, v, w, u.bfloat16(), chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_rwkv6_chunked(r, k, v.transpose(2, 3).contiguous().transpose(
+            2, 3), w, u, chunk=32)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        cuda_rwkv6_chunked(r, k, v, w, u, chunk=48)
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_rwkv6_chunked(*_rwkv(1, 2, 64, 24, torch.float32, 3), chunk=32)

@@ -1,0 +1,262 @@
+"""The torch port's attention and RWKV6 ops vs the JAX package's kernels.
+
+Inputs are drawn with numpy from a seed and fed to both packages. Here
+the port's ops get CPU tensors, so they run their plain torch versions;
+the JAX side runs the Pallas kernels in interpret mode (as
+``tests/test_kernels.py`` does) and the jnp references. Tolerances are
+the JAX tests' own: attention 2e-6 in f32 and 2e-2 in bf16, RWKV6 1e-4,
+all compared in f32. RWKV6 with bf16 inputs is held to 1e-4 too, not the
+JAX file's 0.15: both sides widen the same bf16 values and run the
+recurrence in f32, so only the order of the f32 sums differs. The CUDA
+kernels are held against these plain versions on the card in
+``test_torch_gpu.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as pallas_flash_attention
+from repro.kernels import rwkv6_chunked as pallas_rwkv6_chunked
+from repro.kernels.ref import mha_reference as jax_mha_reference
+from repro.kernels.ref import rwkv6_reference as jax_rwkv6_reference
+from repro_torch import kernels
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import \
+    flash_attention as cuda_flash_attention
+from repro_torch.kernels.rwkv6_scan import rwkv6_chunked as cuda_rwkv6_chunked
+
+# (B, H, KV, Sq, Skv, D): the grid of tests/test_kernels.py
+ATTN_SHAPES = [(2, 4, 2, 128, 128, 64), (1, 4, 4, 256, 256, 32),
+               (2, 4, 1, 128, 256, 64), (1, 8, 2, 64, 64, 128)]
+# (B, H, T, D, chunk): the grid of tests/test_kernels.py
+RWKV_SHAPES = [(2, 2, 64, 32, 16), (1, 4, 128, 64, 64), (2, 1, 256, 16, 128),
+               (1, 2, 64, 64, 64)]
+TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+
+
+def _ids(shapes):
+    return ["x".join(map(str, s)) for s in shapes]
+
+
+def _attn_inputs(b, h, kv, sq, skv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d), dtype=np.float32),
+            rng.standard_normal((b, kv, skv, d), dtype=np.float32),
+            rng.standard_normal((b, kv, skv, d), dtype=np.float32))
+
+
+def _torch(arrays, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+
+
+def _jax(arrays, dtype):
+    return [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(port, want, tol):
+    np.testing.assert_allclose(_f32(port), _f32(want), atol=tol, rtol=tol)
+
+
+# ------------------------------------------------------------ attention
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,skv,d", ATTN_SHAPES,
+                         ids=_ids(ATTN_SHAPES))
+def test_flash_attention_matches_jax(b, h, kv, sq, skv, d, dtype):
+    arrays = _attn_inputs(b, h, kv, sq, skv, d, seed=sq + skv + d)
+    out = ops.flash_attention(*_torch(arrays, dtype), causal=True,
+                              block_q=64, block_kv=64)
+    assert out.dtype == getattr(torch, dtype)
+    assert out.shape == (b, h, sq, d)
+    jx = _jax(arrays, dtype)
+    _close(out, jax_mha_reference(*jx, causal=True), TOL[dtype])
+    if dtype == "float32" or (b, h) == (1, 8):   # the Pallas subset
+        pk = pallas_flash_attention(*jx, causal=True, block_q=64,
+                                    block_kv=64, interpret=True)
+        _close(out, pk, TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_window_and_noncausal(window, causal):
+    """The window applies with and without the causal mask, as in the
+    Pallas kernel."""
+    arrays = _attn_inputs(1, 2, 2, 128, 128, 64, seed=window)
+    out = ops.flash_attention(*_torch(arrays, "float32"), causal=causal,
+                              window=window, block_q=64, block_kv=64)
+    jx = _jax(arrays, "float32")
+    _close(out, jax_mha_reference(*jx, causal=causal, window=window), 2e-6)
+    _close(out, pallas_flash_attention(*jx, causal=causal, window=window,
+                                       block_q=64, block_kv=64,
+                                       interpret=True), 2e-6)
+
+
+def test_flash_attention_fully_masked_rows_take_the_mean_of_v():
+    """Causal with Sq > Skv: queries at negative positions see no key, so
+    their scores are all -1e30 and their output is the uniform mean of v
+    over all Skv keys (the reference and the Pallas kernel agree)."""
+    b, h, kv, sq, skv, d = 1, 4, 2, 128, 64, 32
+    arrays = _attn_inputs(b, h, kv, sq, skv, d, seed=5)
+    out = ops.flash_attention(*_torch(arrays, "float32"), causal=True,
+                              block_q=64, block_kv=64)
+    mean_v = np.repeat(arrays[2].mean(axis=2, keepdims=True), h // kv, 1)
+    np.testing.assert_allclose(out.numpy()[:, :, : sq - skv],
+                               np.broadcast_to(mean_v, (b, h, sq - skv, d)),
+                               atol=2e-6, rtol=2e-6)
+    jx = _jax(arrays, "float32")
+    _close(out, jax_mha_reference(*jx, causal=True), 2e-6)
+    _close(out, pallas_flash_attention(*jx, causal=True, block_q=64,
+                                       block_kv=64, interpret=True), 2e-6)
+
+
+@pytest.mark.parametrize("window", [0, 96])
+def test_flash_attention_end_aligned_prefill(window):
+    """Sq < Skv: query i sits at position Skv - Sq + i (a prefill after a
+    cache), with and without a window reaching back into the cache."""
+    arrays = _attn_inputs(1, 4, 1, 64, 256, 64, seed=9 + window)
+    out = ops.flash_attention(*_torch(arrays, "float32"), causal=True,
+                              window=window, block_q=64, block_kv=64)
+    jx = _jax(arrays, "float32")
+    _close(out, jax_mha_reference(*jx, causal=True, window=window), 2e-6)
+    _close(out, pallas_flash_attention(*jx, causal=True, window=window,
+                                       block_q=64, block_kv=64,
+                                       interpret=True), 2e-6)
+
+
+# ---------------------------------------------------------------- RWKV6
+def _rwkv_inputs(b, h, t, d, seed, scale=0.5):
+    rng = np.random.default_rng(seed)
+    shp = (b, h, t, d)
+    r, k, v = (rng.standard_normal(shp, dtype=np.float32) * scale
+               for _ in range(3))
+    w = (1 / (1 + np.exp(-rng.standard_normal(shp, dtype=np.float32)))
+         * 0.5 + 0.45).astype(np.float32)
+    u = rng.standard_normal((h, d), dtype=np.float32) * scale
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("b,h,t,d,chunk", RWKV_SHAPES, ids=_ids(RWKV_SHAPES))
+def test_rwkv6_matches_jax(b, h, t, d, chunk):
+    arrays = _rwkv_inputs(b, h, t, d, seed=t + d)
+    y = ops.rwkv6_chunked(*_torch(arrays, "float32"), chunk=chunk)
+    assert y.dtype == torch.float32 and y.shape == (b, h, t, d)
+    jx = _jax(arrays, "float32")
+    want, _ = jax_rwkv6_reference(*jx)
+    _close(y, want, 1e-4)
+    _close(y, pallas_rwkv6_chunked(*jx, chunk=chunk, interpret=True), 1e-4)
+
+
+def test_rwkv6_bf16_inputs():
+    arrays = _rwkv_inputs(1, 2, 64, 32, seed=11, scale=1.0)
+    y = ops.rwkv6_chunked(*_torch(arrays, "bfloat16"), chunk=32)
+    assert y.dtype == torch.float32
+    jx = _jax(arrays, "bfloat16")
+    _close(y, jax_rwkv6_reference(*jx)[0], 1e-4)
+    _close(y, pallas_rwkv6_chunked(*jx, chunk=32, interpret=True), 1e-4)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_reference_final_state_matches_jax(with_state):
+    arrays = _rwkv_inputs(2, 2, 48, 16, seed=13)
+    state = (np.random.default_rng(3).standard_normal((2, 2, 16, 16),
+                                                      dtype=np.float32)
+             if with_state else None)
+    y, final = ref.rwkv6_reference(
+        *_torch(arrays, "float32"),
+        state=None if state is None else torch.from_numpy(state))
+    jy, jfinal = jax_rwkv6_reference(
+        *_jax(arrays, "float32"),
+        state=None if state is None else jnp.asarray(state))
+    _close(y, jy, 1e-4)
+    _close(final, jfinal, 1e-4)
+
+
+# ------------------------------------------------------------ contracts
+def _attn_tensors(b=1, h=4, kv=2, sq=64, skv=64, d=16):
+    return _torch(_attn_inputs(b, h, kv, sq, skv, d, seed=0), "float32")
+
+
+@pytest.mark.parametrize("sq,skv,bq,bkv", [(96, 64, 64, 64), (64, 96, 64, 64),
+                                           (64, 64, 48, 64)])
+def test_flash_attention_divisibility_raises(sq, skv, bq, bkv):
+    q, k, v = _attn_tensors(sq=sq, skv=skv)
+    with pytest.raises(ValueError, match="multiples"):
+        ops.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+
+
+def test_flash_attention_heads_must_group():
+    q, k, v = _attn_tensors(h=6, kv=4)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        ops.flash_attention(q, k, v)
+
+
+def test_rwkv6_chunk_divisibility_raises():
+    arrays = _torch(_rwkv_inputs(1, 2, 96, 16, seed=0), "float32")
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.rwkv6_chunked(*arrays, chunk=64)
+    with pytest.raises(ValueError, match="u has shape"):
+        ops.rwkv6_chunked(*arrays[:4], arrays[4][:1], chunk=32)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """No fallback: the CUDA wrappers never compute on a CPU tensor."""
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_flash_attention(*_attn_tensors())
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_rwkv6_chunked(*_torch(_rwkv_inputs(1, 2, 64, 16, seed=0),
+                                   "float32"), chunk=32)
+
+
+def test_ops_refuse_devices_without_kernel():
+    q = torch.zeros((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(q, q, q)
+    x = torch.zeros((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.rwkv6_chunked(x, x, x, x, torch.zeros((2, 16), device="meta"),
+                          chunk=8)
+
+
+def test_kernels_package_exports_the_ops():
+    assert kernels.flash_attention is ops.flash_attention
+    assert kernels.rwkv6_chunked is ops.rwkv6_chunked
+    assert ref.mha_reference is ops.mha_reference
+    assert ref.rwkv6_reference is ops.rwkv6_reference
+
+
+# ---------------------------------------------------------------- build
+@pytest.mark.parametrize("name", build.KERNELS)
+def test_build_target_covers_source_headers_and_flags(name, monkeypatch,
+                                                      tmp_path):
+    """An edit to the source, to any shared header or to the flags names
+    another library, so a stale build is never loaded."""
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = {build._target(name).name}
+    (tmp_path / "common.cuh").write_text(
+        (tmp_path / "common.cuh").read_text() + "\n// edited\n")
+    names.add(build._target(name).name)
+    (tmp_path / f"{name}.cu").write_text(
+        (tmp_path / f"{name}.cu").read_text() + "\n// edited\n")
+    names.add(build._target(name).name)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    names.add(build._target(name).name)
+    assert len(names) == 4
+    assert all(n.startswith(f"lib{name}-") for n in names)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "rwkv6_scan"])
+def test_failed_build_of_new_kernels_raises(name, monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match=f"nvcc failed .* {name}.cu"):
+        build.build(name)
+    assert not list(tmp_path.glob("*.so"))
