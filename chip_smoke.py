@@ -8,7 +8,11 @@ Phases, each of which raises on failure (exit code non-zero):
 1. The card's name and power limit, as nvidia-smi reports them.
 2. Build every CUDA kernel from ``src/repro_torch/kernels/csrc``, after
    removing every library left by an earlier build: one ``nvcc`` per
-   source, all started together, each timed.
+   source, all started together, each timed. For each library, the
+   registers, stack, local (spill) and static shared memory of each of
+   its kernels, as ``cuobjdump --dump-resource-usage`` reports them. Design
+   check: the bf16 attention library's SASS must hold ``HGMMA`` (wgmma on
+   the tensor cores) and ``UTMALDG`` (TMA loads), or the script stops.
 3. Kernel phase: ``quack_scan``'s CUDA result against its plain torch
    version on the card, both ``compute_lost`` settings, at the main
    path's shape (19, 19, 65536), ragged widths and R = 33 with random
@@ -37,16 +41,21 @@ Phases, each of which raises on failure (exit code non-zero):
    its last 512 query rows); F1's widths at S=2048 in f32 (F4). RWKV6 at
    rwkv6-7b's widths (H=64, D=64), B=2, T=4096, f32 (R1) and bf16 (R2).
    Each shape runs once through the op with the launch counters at 0;
-   every output must agree with the plain torch version on the card
+   F1-F3 must count on the bf16 route (``flash_attention_sm90.cu``), F4
+   on the f32 route (``flash_attention.cu``); every output must agree with
+   the plain torch version on the card
    (allclose: attention bf16 atol 1e-5, rtol 1.6e-2, f32 atol = rtol =
    2e-6; RWKV6 1e-4), attention on four input sets. Controls show that
    the attention tolerance catches a wrong result: on the last 512 query
    rows, plain versions with one deliberate fault (P rounded to bf16, the
    oldest key or the oldest 64 keys of each row dropped, TF32 products in
    f32) must each put entries over it, and the same plain version with no
-   fault none. Then the kernel's device time (CUDA graph over input sets
-   larger than the L2), the plain version's, SDPA's for attention, and
-   the bound.
+   fault none; in bf16 so must the bf16 kernel's own contract, P as two
+   bf16 halves (``kernels.ref.mha_split_p``). Then the kernel's device time
+   (CUDA graph over input sets larger than the L2), the plain version's,
+   SDPA's for attention, and the bound; for bf16 the rate counted at 4 D
+   FLOPs a pair, executed at 6 D (two products for P·V), and issued over
+   whole 128 x 128 tiles.
 
 The last lines are the ``kernels`` JSON line, and then
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -57,6 +66,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -86,8 +96,10 @@ KERNEL_FILES = {
                    "src/repro/kernels/quack_scan.py:84"),
     "quack_scan_no_lost": (f"{CSRC}/quack_scan.cu",
                            "src/repro/kernels/quack_scan.py:84"),
-    "flash_attention": (f"{CSRC}/flash_attention.cu",
+    "flash_attention": (f"{CSRC}/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:72"),
+    "flash_attention_f32": (f"{CSRC}/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:72"),
     "rwkv6_chunked": (f"{CSRC}/rwkv6_scan.cu",
                       "src/repro/kernels/rwkv6_scan.py:63"),
 }
@@ -112,11 +124,16 @@ ATTN_TOL = {torch.bfloat16: (1e-5, 1.6e-2), torch.float32: (2e-6, 2e-6)}
 CHECK_SETS = 4        # input sets each attention shape is checked on
 CONTROL_ROWS = 512    # query rows, the last of each shape, of the controls
 # the faults of the controls; "none" is the control's own plain version,
-# which must pass. TF32 keeps a bf16 input exact, so it is an f32 fault.
-CONTROLS = {torch.bfloat16: ("none", "P in bf16", "oldest key dropped",
-                             "oldest 64 keys dropped"),
+# and "P as two bf16 halves" the bf16 kernel's arithmetic
+# (ref.mha_split_p): both must pass. TF32 keeps a bf16 input exact, so it
+# is an f32 fault.
+CONTROLS = {torch.bfloat16: ("none", "P as two bf16 halves", "P in bf16",
+                             "oldest key dropped", "oldest 64 keys dropped"),
             torch.float32: ("none", "P in bf16", "oldest key dropped",
                             "oldest 64 keys dropped", "TF32 products")}
+SOUND = ("none", "P as two bf16 halves")
+# the bf16 kernel's tiles: 128 query rows a block, 128 keys a tile
+SM90_BQ = SM90_BKV = 128
 # (name, source, (B, H, T, D), dtype); chunk 128
 RWKV_SHAPES = [
     ("R1", "rwkv6-7b, src/repro/configs/rwkv6_7b.py:10-12",
@@ -299,6 +316,22 @@ def attn_pairs(sq: int, skv: int, window: int) -> int:
     return int(np.where(n > 0, n, skv).sum())
 
 
+def attn_tiles(sq: int, skv: int, window: int) -> int:
+    """kv tiles the bf16 kernel visits for one causal head, summed over its
+    128-row query blocks, by the kernel's skipping rule: a block with a
+    row that sees no key visits every tile."""
+    n = 0
+    for q0 in range(0, sq, SM90_BQ):
+        lo, hi = skv - sq + q0, skv - sq + min(q0 + SM90_BQ, sq) - 1
+        t_lo, t_hi = 0, (skv - 1) // SM90_BKV
+        if lo >= 0:
+            t_hi = min(t_hi, hi // SM90_BKV)
+            if window > 0:
+                t_lo = max(0, lo - window + 1) // SM90_BKV
+        n += t_hi - t_lo + 1
+    return n
+
+
 def attn_bound(shape, dtype, window):
     """Least time: 4 D FLOPs per computed pair (two products) at the
     type's peak, vs q, k, v read once and o written once."""
@@ -344,7 +377,11 @@ def attention_control(q, k, v, window, fault):
     bf16 before the product with v; "oldest key dropped" and "oldest 64
     keys dropped" mask the first unmasked keys of every row (the window
     moved in by one key or one tile); "TF32 products" lets both products
-    use TF32; "none" is the same computation without a fault."""
+    use TF32; "none" is the same computation without a fault; "P as two
+    bf16 halves" is ``ref.mha_split_p``, the bf16 kernel's arithmetic."""
+    if fault == "P as two bf16 halves":
+        from repro_torch.kernels.ref import mha_split_p
+        return mha_split_p(q, k, v, causal=True, window=window)
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     pos = skv - sq + torch.arange(sq, device=q.device)[:, None]
@@ -415,8 +452,9 @@ def api_phase(dev):
     rwkv = {n: rwkv_inputs(shp, dt, gen) for n, _, shp, dt in RWKV_SHAPES}
 
     # the phase's path: every shape once through the public ops, counted
+    # by route: bf16 on the wgmma kernel, f32 on the FMA kernel
     torch.cuda.synchronize()
-    fa.launches = rk.launches = 0
+    fa.launches = fa.launches_sm90 = fa.launches_f32 = rk.launches = 0
     out = {}
     for name, _, _, _, window, _ in ATTN_SHAPES:
         out[name] = ops.flash_attention(*attn[name], causal=True,
@@ -424,12 +462,18 @@ def api_phase(dev):
     for name, *_ in RWKV_SHAPES:
         out[name] = ops.rwkv6_chunked(*rwkv[name], chunk=128)
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa.launches, "rwkv6_chunked": rk.launches}
-    log(f"[api] launches in the phase's path: {launches}")
-    if launches != {"flash_attention": len(ATTN_SHAPES),
-                    "rwkv6_chunked": len(RWKV_SHAPES)}:
-        raise AssertionError(f"api: expected one launch per shape, got "
-                             f"{launches}")
+    launches = {"flash_attention": fa.launches_sm90,
+                "flash_attention_f32": fa.launches_f32,
+                "rwkv6_chunked": rk.launches}
+    log(f"[api] launches in the phase's path: {launches} "
+        f"({fa.launches} attention launches in all)")
+    n_bf16 = sum(dt == torch.bfloat16 for *_, dt, _, _ in ATTN_SHAPES)
+    if fa.launches != len(ATTN_SHAPES) or launches != {
+            "flash_attention": n_bf16,
+            "flash_attention_f32": len(ATTN_SHAPES) - n_bf16,
+            "rwkv6_chunked": len(RWKV_SHAPES)}:
+        raise AssertionError(f"api: expected one launch per shape on its "
+                             f"dtype's route, got {launches}")
 
     result = {}
     for name, src, shape, dtype, window, rows in ATTN_SHAPES:
@@ -475,7 +519,8 @@ def api_phase(dev):
                 f"rows): {n} entries over tolerance, max |err| {e:.3e}, "
                 f"largest share of the tolerance used {u:.3f}")
         del q, k, v, want
-        if caught.pop("none") or not all(caught.values()):
+        if any(caught[f] for f in caught if f in SOUND) or not all(
+                caught[f] for f in caught if f not in SOUND):
             raise AssertionError(f"api: the {name} tolerance does not tell "
                                  f"the controls apart: {caught}")
         k_t = graph_ms(kern, sets, len(sets), replays=1, windows=3)
@@ -489,12 +534,20 @@ def api_phase(dev):
         torch.cuda.empty_cache()
         bnd = attn_bound(shape, dtype, window)
         ms = median(k_t)
+        rate = f"{bnd['flops'] / ms / 1e9:.2f} TFLOP/s"
+        if dtype == torch.bfloat16:
+            issued = 6 * d * SM90_BQ * SM90_BKV * attn_tiles(sq, skv,
+                                                             window) * b * h
+            rate = (f"{rate} counted (4 D a pair), "
+                    f"{1.5 * bnd['flops'] / ms / 1e9:.2f} executed (6 D a "
+                    f"pair), {issued / ms / 1e9:.2f} issued over whole "
+                    f"{SM90_BQ} x {SM90_BKV} tiles ({issued / 1e9:.1f} "
+                    f"GFLOP)")
         log(f"[api] flash_attention {name} ({src}) (B,H,KV,Sq,Skv,D)="
             f"{shape} {str(dtype)[6:]} causal window={window}: {bad} "
             f"entries over tolerance ({checked}), max |err| {err:.3e}; "
             f"{ms:.4f} ms/call median of {len(k_t)} windows (min "
-            f"{k_t[0]:.4f}, max {k_t[-1]:.4f}), "
-            f"{bnd['flops'] / ms / 1e9:.2f} TFLOP/s; plain torch "
+            f"{k_t[0]:.4f}, max {k_t[-1]:.4f}), {rate}; plain torch "
             f"{median(p_t):.4f} ms ({checked}); SDPA {median(l_t):.4f} ms; "
             f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
             f"({bnd['flops'] / 1e9:.1f} GFLOP, {bnd['moved'] / 1e6:.1f} MB), "
@@ -539,8 +592,11 @@ def api_phase(dev):
         raise AssertionError(f"api: kernel disagrees with its plain version "
                              f"({bad} entries over tolerance)")
     entries = {}
+    bf16 = [n for n, _, _, dt, _, _ in ATTN_SHAPES if dt == torch.bfloat16]
     for kernel, first, names in (
-            ("flash_attention", "F1", [n for n, *_ in ATTN_SHAPES]),
+            ("flash_attention", "F1", bf16),
+            ("flash_attention_f32", "F4",
+             [n for n, *_ in ATTN_SHAPES if n not in bf16]),
             ("rwkv6_chunked", "R1", [n for n, *_ in RWKV_SHAPES])):
         e = {k: result[first][k] for k in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")}
@@ -687,8 +743,9 @@ def profile_rounds(rounds: int, per_round_ms: float) -> None:
             f" {e.count / rounds:5.1f} launches/round  {e.key[:90]}")
 
 
-def build_all() -> None:
-    """Phase 2: every source, one nvcc each, all started together."""
+def build_all() -> dict:
+    """Phase 2: every source, one nvcc each, all started together. Returns
+    {source name: library path}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
@@ -702,13 +759,64 @@ def build_all() -> None:
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    libs = {}
     with ThreadPoolExecutor(len(build.KERNELS)) as pool:
         jobs = [(name, pool.submit(timed, name)) for name in build.KERNELS]
         for name, job in jobs:
-            lib, sec = job.result()
-            log(f"[build] {lib.name} built with nvcc in {sec:.2f} s")
+            libs[name], sec = job.result()
+            log(f"[build] {libs[name].name} built with nvcc in {sec:.2f} s")
     log(f"[build] {len(jobs)} kernels in {time.perf_counter() - t0:.2f} s "
         f"wall")
+    return libs
+
+
+def cuobjdump(*args) -> str:
+    """The output of the toolkit's cuobjdump (beside nvcc)."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), *map(str, args)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def kernel_name(mangled: str) -> str:
+    """``name[template arguments]`` of a mangled ``*_kernel`` symbol, the
+    arguments left mangled (``Li128E`` is the int 128)."""
+    for i in range(len(mangled)):
+        for j in range(i + 1, min(i + 3, len(mangled)) + 1):
+            if not mangled[i:j].isdigit():
+                break
+            ident = mangled[j:j + int(mangled[i:j])]
+            if ident.endswith("_kernel") and ident.isidentifier():
+                args = re.match(r"I(.*?)EEv", mangled[j + len(ident):])
+                return f"{ident}[{args.group(1)}]" if args else ident
+    return mangled
+
+
+def inspect_builds(libs: dict) -> None:
+    """Phase 2, continued: each kernel's resources, and the design check of
+    the bf16 attention library."""
+    for name, lib in libs.items():
+        kernel = None
+        for line in cuobjdump("--dump-resource-usage", lib).splitlines():
+            line = line.strip()
+            if line.startswith("Function "):
+                kernel = kernel_name(line[len("Function "):].rstrip(":"))
+            elif kernel and line.startswith("REG:"):
+                res = dict(re.findall(r"(\w+):(\d+)", line))
+                log(f"[build] {name}: {kernel}: {res['REG']} registers, "
+                    f"stack {res['STACK']} B, local (spills) {res['LOCAL']}"
+                    f" B, static shared {res['SHARED']} B")
+                kernel = None
+    sass = cuobjdump("-sass", libs["flash_attention_sm90"])
+    ops = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("HGMMA", "UTMALDG", "LDL", "STL")}
+    log(f"[build] flash_attention_sm90 SASS: {ops['HGMMA']} HGMMA, "
+        f"{ops['UTMALDG']} UTMALDG, {ops['LDL']} LDL and {ops['STL']} STL "
+        f"(local loads and stores)")
+    if not (ops["HGMMA"] and ops["UTMALDG"]):
+        raise AssertionError("flash_attention_sm90: no HGMMA or UTMALDG in "
+                             "its SASS; the bf16 path is not on wgmma and "
+                             "TMA")
 
 
 def main() -> int:
@@ -723,7 +831,7 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    build_all()
+    inspect_builds(build_all())
     kern = kernel_phase(dev)
     t0 = time.perf_counter()
     api = api_phase(dev)
@@ -737,6 +845,7 @@ def main() -> int:
             ("quack_scan_no_lost", dict(kern[False], launches=launches[1],
                                         library_ms=None)),
             ("flash_attention", api["flash_attention"]),
+            ("flash_attention_f32", api["flash_attention_f32"]),
             ("rwkv6_chunked", api["rwkv6_chunked"])]
     entries = []
     for name, k in rows:

@@ -5,8 +5,9 @@ torch version (``ref``) on CPU tensors:
 
 - ``quack_scan``: the QUACK quorum aggregation of every protocol round
   (``csrc/quack_scan.cu``, plain ``ref.quack_reference``);
-- ``flash_attention``: causal / sliding-window / grouped-query attention
-  (``csrc/flash_attention.cu``, plain ``ref.mha_reference``);
+- ``flash_attention``: causal / sliding-window / grouped-query attention,
+  bf16 on ``csrc/flash_attention_sm90.cu`` (wgmma and TMA), f32 on
+  ``csrc/flash_attention.cu`` (plain ``ref.mha_reference``);
 - ``rwkv6_chunked``: the RWKV6 recurrence (``csrc/rwkv6_scan.cu``, plain
   ``ref.rwkv6_reference``).
 """

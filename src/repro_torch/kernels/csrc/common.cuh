@@ -1,5 +1,5 @@
-// common.cuh: element conversions shared by the attention and RWKV6
-// kernels. Inputs are f32 or bf16; every kernel computes in f32.
+// common.cuh: element conversions for the RWKV6 kernel, whose inputs are
+// f32 or bf16 and which computes in f32.
 
 #pragma once
 

@@ -1,24 +1,24 @@
-// flash_attention.cu: online-softmax attention (causal and/or sliding
-// window, grouped-query heads), written for NVIDIA Hopper (sm_90a).
+// flash_attention.cu: f32 online-softmax attention (causal and/or sliding
+// window, grouped-query heads), written for NVIDIA Hopper (sm_90a). bf16
+// inputs go to flash_attention_sm90.cu (wgmma and TMA) instead.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
-// flash_attention (_kernel). For q (B, H, Sq, D) and k, v (B, KV, Skv, D),
-// f32 or bf16, it computes
+// flash_attention (_kernel) for f32 inputs. For q (B, H, Sq, D) and k, v
+// (B, KV, Skv, D), f32, it computes
 //
 //   o[b,h,i] = sum_j softmax_j(s[i,j]) v[b,h/(H/KV),j],
 //   s[i,j]   = (q[b,h,i] . k[b,h/(H/KV),j]) / sqrt(D), or -1e30 where masked,
 //
 // with query i at position q_pos = Skv - Sq + i (aligned to the end, as in
 // a prefill after a cache) and key j masked when causal and j > q_pos, or
-// when window > 0 and j <= q_pos - window. Sums and the softmax are f32;
-// o is written in the input type.
+// when window > 0 and j <= q_pos - window. Everything is f32.
 //
-// What bounds it: operations. At granite-8b's causal prefill (B = 1,
-// H = 32, KV = 8, S = 4096, D = 128) the unmasked (q, k) pairs need
-// 137 GFLOP against 84 MB of q, k, v and o: 139 us at the bf16 tensor-core
-// peak, 25 us at the memory rate. This first kernel does its products on
-// the f32 FMA pipes (67 TFLOP/s at most), so it cannot come within about
-// 15x of that bound; moving both products to wgmma is the next step.
+// What bounds it: operations. At granite-8b's widths in f32 (B = 1,
+// H = 32, KV = 8, S = 2048, D = 128) the unmasked (q, k) pairs need
+// 34 GFLOP against 84 MB of q, k, v and o: 513 us on the f32 FMA pipes
+// (67 TFLOP/s), 25 us at the memory rate. The products stay on those
+// pipes: the port's f32 limit (2e-6, the JAX tests') rules out TF32 on the
+// tensor cores.
 //
 // Design:
 // * The TPU kernel walks the kv axis as a sequential grid dimension and
@@ -27,10 +27,9 @@
 //   m, l and the f32 accumulator stay in registers for the whole loop.
 //   Grid: (ceil(Sq / 64), B * H), query tiles in reverse order so that the
 //   longest causal rows start first.
-// * q, k and v tiles are staged in shared memory as f32 (bf16 is
-//   widened on load): 98 KB at D = 128, so the launch raises the
-//   dynamic shared-memory limit first; two blocks fit on an SM. The P tile
-//   reuses k's space once S is computed.
+// * q, k and v tiles are staged in shared memory: 98 KB at D = 128, so
+//   the launch raises the dynamic shared-memory limit first; two blocks
+//   fit on an SM. The P tile reuses k's space once S is computed.
 // * Thread (tx, ty) of the 16 x 16 block computes S for rows ty + 16a and
 //   keys tx + 16c (a, c < 4) from float4 reads of padded rows (conflict
 //   free), reduces row max and sum with shuffles inside its half-warp, and
@@ -46,16 +45,12 @@
 // * Each dot product is scaled after it is summed, by the f32 reciprocal
 //   of sqrt(D), as the plain version on the card scales its scores; q is
 //   not scaled before the product, which would round every term once more.
-// * expf, not __expf; no fast-math; f32 inputs never touch TF32.
+// * expf, not __expf; no fast-math; never TF32.
 
 #include <cuda_runtime.h>
-
-#include "common.cuh"
+#include <math.h>
 
 namespace {
-
-using repro_torch::load4;
-using repro_torch::store_f32;
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBKV = 64;       // keys per tile
@@ -78,14 +73,15 @@ struct Layout {
 
 // Rows [row0, row0 + 64) of a (nrows, D) matrix into a tile with row
 // stride LD; rows past nrows are zero.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
+template <int D, int LD>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, int row0,
                                           int nrows, float* dst) {
   constexpr int kVec = D / 4;
   for (int e = threadIdx.x; e < kBQ * kVec; e += kThreads) {
     const int row = e / kVec, col = (e % kVec) * 4;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + row < nrows) x = load4(src + static_cast<size_t>(row0 + row) * D + col);
+    if (row0 + row < nrows)
+      x = *reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + row) * D + col);
     *reinterpret_cast<float4*>(dst + row * LD + col) = x;
   }
 }
@@ -124,10 +120,10 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H, int KV,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int H, int KV,
                        int Sq, int Skv, int causal, int window, float sqrt_d) {
   using L = Layout<D>;
   extern __shared__ float4 smem4[];
@@ -145,7 +141,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_offset = Skv - Sq;
   const float scale = 1.0f / sqrt_d;
 
-  load_tile<T, D, L::kLD>(q + q_base, q0, Sq, qs);
+  load_tile<D, L::kLD>(q + q_base, q0, Sq, qs);
 
   float m[4], l[4], acc[4][L::kCols];
 #pragma unroll
@@ -168,8 +164,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_lo; t <= t_hi; ++t) {
     const int k0 = t * kBKV;
     __syncthreads();  // the previous tile's P and v are consumed
-    load_tile<T, D, L::kLD>(k + kv_base, k0, Skv, ks);
-    load_tile<T, D, D>(v + kv_base, k0, Skv, vs);
+    load_tile<D, L::kLD>(k + kv_base, k0, Skv, ks);
+    load_tile<D, D>(v + kv_base, k0, Skv, vs);
     __syncthreads();
 
     float s[4][4];
@@ -255,57 +251,49 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int i = q0 + ty + 16 * a;
     if (i < Sq) {
       const float denom = fmaxf(l[a], 1e-30f);
-      T* row = o + q_base + static_cast<size_t>(i) * D;
+      float* row = o + q_base + static_cast<size_t>(i) * D;
 #pragma unroll
       for (int c = 0; c < L::kNC; ++c)
 #pragma unroll
         for (int e = 0; e < L::kVD; ++e)
-          store_f32(row + c * 16 * L::kVD + tx * L::kVD + e, acc[a][c * L::kVD + e] / denom);
+          row[c * 16 * L::kVD + tx * L::kVD + e] = acc[a][c * L::kVD + e] / denom;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
                    int KV, int Sq, int Skv, int causal, int window, float sqrt_d,
                    cudaStream_t stream) {
   using L = Layout<D>;
-  auto kern = flash_attention_kernel<T, D>;
+  auto kern = flash_attention_kernel<D>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kern<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KV, Sq, Skv, causal, window, sqrt_d);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Skv, causal, window,
+      sqrt_d);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int KV, int Sq, int Skv, int D, int causal, int window, float sqrt_d,
-                     cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, sqrt_d, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, sqrt_d, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, sqrt_d, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, sqrt_d, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. All tensors are contiguous and
-// 16-byte aligned; H % KV == 0; window <= 0 means no window. Returns the
-// CUDA error of the launch (0 on success).
+// Plain C entry point, loaded with ctypes. All tensors are contiguous f32
+// and 16-byte aligned; H % KV == 0; window <= 0 means no window. Returns
+// the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int KV, int Sq, int Skv, int D,
-                                      int causal, int window, float sqrt_d, int bf16,
-                                      void* stream) {
+                                      int causal, int window, float sqrt_d, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, D, causal, window, sqrt_d, s)
-           : launch_d<float>(q, k, v, o, B, H, KV, Sq, Skv, D, causal, window, sqrt_d, s);
+  cudaError_t err;
+  switch (D) {
+    case 16: err = launch<16>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, sqrt_d, s); break;
+    case 32: err = launch<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, sqrt_d, s); break;
+    case 64: err = launch<64>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, sqrt_d, s); break;
+    case 128: err = launch<128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, sqrt_d, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -1,14 +1,18 @@
-"""Attention on the GPU: the wrapper of ``csrc/flash_attention.cu``.
+"""Attention on the GPU: the wrapper of the two attention kernels.
 
 Online-softmax attention over q (B,H,Sq,D) and k, v (B,KV,Skv,D), causal
 and/or with a sliding window, query head h reading kv head h // (H/KV),
 query positions aligned to the end of the keys (Skv - Sq + i), masked
 scores -1e30, f32 sums, output in q's dtype.
 
-The kernel is CUDA C++ for Hopper, built with ``nvcc`` at first use
-(``kernels.build``) and launched on PyTorch's current stream. Its plain
-torch version is ``kernels.ref.mha_reference``; ``kernels.ops.
-flash_attention`` picks between the two by the device of the tensors.
+The route is fixed by dtype, before launch: bfloat16 goes to
+``csrc/flash_attention_sm90.cu`` (wgmma and TMA, P split into two bf16
+halves), float32 to ``csrc/flash_attention.cu`` (the f32 FMA pipes, no
+TF32). Both are CUDA C++ for Hopper, built with ``nvcc`` at first use
+(``kernels.build``) and launched on PyTorch's current stream; a failed
+build or launch raises. Their plain torch version is
+``kernels.ref.mha_reference``; ``kernels.ops.flash_attention`` picks
+between kernel and plain version by the device of the tensors.
 """
 
 from __future__ import annotations
@@ -25,15 +29,17 @@ from .checks import check_tensor, require_cuda
 __all__ = ["flash_attention", "check_attention_args"]
 
 _HEAD_DIMS = (16, 32, 64, 128)
-_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> the source under csrc/ whose kernel serves it
+ROUTES = {torch.bfloat16: "flash_attention_sm90",
+          torch.float32: "flash_attention"}
 _MAX_BH = 65535            # the grid's y extent
 
 
 @functools.cache
-def _entry():
-    fn = load_library("flash_attention").flash_attention_launch
+def _entry(name: str):
+    fn = getattr(load_library(name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,11 +69,11 @@ def check_attention_args(q, k, v, block_q: int, block_kv: int) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, block_q: int = 128,
                     block_kv: int = 128) -> torch.Tensor:
-    """Launch the CUDA kernel. All tensors lie on one CUDA device, are
-    contiguous, and share one dtype, float32 or bfloat16; D is 16, 32, 64
-    or 128. ``block_q``/``block_kv`` only set the divisibility contract:
-    the kernel tiles by 64 and masks ragged edges itself. Returns
-    (B,H,Sq,D) in q's dtype."""
+    """Launch the dtype's CUDA kernel (``ROUTES``). All tensors lie on one
+    CUDA device, are contiguous, and share one dtype, float32 or bfloat16;
+    D is 16, 32, 64 or 128. ``block_q``/``block_kv`` only set the
+    divisibility contract: the kernels tile by their own sizes and mask
+    ragged edges themselves. Returns (B,H,Sq,D) in q's dtype."""
     require_cuda("flash_attention", q)
     check_attention_args(q, k, v, block_q, block_kv)
     b, h, sq, d = q.shape
@@ -75,7 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in "
                          f"{_HEAD_DIMS}")
-    if q.dtype not in _BF16:
+    if q.dtype not in ROUTES:
         raise TypeError(f"flash_attention: dtype {q.dtype} is not float32 "
                         f"or bfloat16")
     if b * h > _MAX_BH:
@@ -87,18 +93,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # a window at least Skv masks nothing; clamping keeps int32 positions
     window = min(int(window), skv) if window > 0 else 0
 
+    route = ROUTES[q.dtype]
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      b, h, n_kv, sq, skv, d, int(bool(causal)), window,
-                      math.sqrt(d), _BF16[q.dtype], stream)
+        rc = _entry(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), b, h, n_kv, sq, skv, d,
+                           int(bool(causal)), window, math.sqrt(d), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention: {route} launch failed with "
+                           f"CUDA error {rc}")
     flash_attention.launches += 1
+    if route == "flash_attention_sm90":
+        flash_attention.launches_sm90 += 1
+    else:
+        flash_attention.launches_f32 += 1
     return o
 
 
-# launches of the kernel
+# launches of the kernels: all, then by route (bf16 on
+# flash_attention_sm90.cu, f32 on flash_attention.cu)
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0
+flash_attention.launches_f32 = 0

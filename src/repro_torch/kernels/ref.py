@@ -7,7 +7,8 @@ import math
 
 import torch
 
-__all__ = ["quack_reference", "mha_reference", "rwkv6_reference"]
+__all__ = ["quack_reference", "mha_reference", "mha_split_p",
+           "rwkv6_reference"]
 
 MASK_VALUE = -1e30      # the masked score of the JAX package's attention
 
@@ -45,16 +46,9 @@ def quack_reference(claims, complaints, stakes, quack_thresh, dup_thresh,
     return quacked, lost, prefix.to(torch.int32)
 
 
-def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
-    """Attention oracle. q: (B,H,Sq,D); k,v: (B,KV,Skv,D), H % KV == 0;
-    query head h reads kv head h // (H/KV).
-
-    Returns (B,H,Sq,D) in q's dtype. Query i sits at position Skv - Sq + i
-    (aligned to the end, as in a prefill after a cache); key j is masked
-    with -1e30 when ``causal`` and j > position, or when ``window > 0`` and
-    j <= position - window. Scores and softmax are f32, so a row whose
-    keys are all masked gets the uniform mean of v.
-    """
+def _scores(q, k, *, causal: bool, window: int):
+    """(B,KV,H/KV,Sq,Skv) f32 scores of ``mha_reference``, masked with
+    -1e30."""
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     qr = q.reshape(b, n_kv, h // n_kv, sq, d).to(torch.float32)
@@ -67,9 +61,40 @@ def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
         ok &= k_pos <= q_pos
     if window > 0:
         ok &= k_pos > q_pos - window
-    p = torch.softmax(s.masked_fill(~ok, MASK_VALUE), dim=-1)
+    return s.masked_fill(~ok, MASK_VALUE)
+
+
+def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
+    """Attention oracle. q: (B,H,Sq,D); k,v: (B,KV,Skv,D), H % KV == 0;
+    query head h reads kv head h // (H/KV).
+
+    Returns (B,H,Sq,D) in q's dtype. Query i sits at position Skv - Sq + i
+    (aligned to the end, as in a prefill after a cache); key j is masked
+    with -1e30 when ``causal`` and j > position, or when ``window > 0`` and
+    j <= position - window. Scores and softmax are f32, so a row whose
+    keys are all masked gets the uniform mean of v.
+    """
+    p = torch.softmax(_scores(q, k, causal=causal, window=window), dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def mha_split_p(q, k, v, *, causal: bool = True, window: int = 0):
+    """``mha_reference`` with the arithmetic the bf16 attention kernel
+    promises: P = exp(s - max) in f32 (the kernel takes it as exp2 of
+    (s - max) log2(e)), its row sum l from the f32 P, and P split into
+    P_hi = bf16(P) and P_lo = bf16(P - P_hi) for the product with v,
+    o = (P_hi v + P_lo v) / l. A plain oracle of the contract, called by
+    tests and checks only, never on an op's path."""
+    s = _scores(q, k, causal=causal, window=window)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    p_hi = p.to(torch.bfloat16).to(torch.float32)
+    p_lo = (p - p_hi).to(torch.bfloat16).to(torch.float32)
+    vf = v.to(torch.float32)
+    o = (torch.einsum("bkgqs,bksd->bkgqd", p_hi, vf)
+         + torch.einsum("bkgqs,bksd->bkgqd", p_lo, vf)) / l
+    return o.reshape(q.shape).to(q.dtype)
 
 
 def rwkv6_reference(r, k, v, w, u, state=None):

@@ -13,7 +13,9 @@ simulator's state is int32/bool. The attention and RWKV6 kernels sum in
 another order than their plain versions, so they are held to tolerances:
 attention 2e-6 in f32 (the JAX tests'), in bf16 atol 1e-5 and rtol 1.6e-2
 (two bf16 steps, the limit ``chip_smoke.py`` measures against controls),
-RWKV6 1e-4.
+RWKV6 1e-4. Attention routes by dtype: every bf16 call must count on the
+wgmma kernel (``launches_sm90``), every f32 call on the FMA kernel
+(``launches_f32``).
 """
 
 import numpy as np
@@ -132,6 +134,12 @@ ATTN_CASES = (
        (1, 4, 1, 128, 1024, 128, True, 300, 128),
        (1, 4, 2, 192, 64, 64, True, 0, 64),
        (1, 2, 1, 96, 160, 16, True, 48, 32)])
+# bf16 only, for the wgmma kernel (128-row blocks, 128-key tiles): the K/V
+# ring wrapped several times at D = 128 with GQA, causal and with a window;
+# one case per head dim with Skv not a multiple of the tile (and Sq not a
+# multiple of the block, so the last block holds rows past Sq)
+SM90_CASES = ([(1, 8, 2, 1024, 1024, 128, True, w, 128) for w in (0, 300)]
+              + [(1, 4, 2, 192, 300, d, True, 0, 4) for d in (16, 32, 64, 128)])
 RWKV_CASES = [(2, 2, 64, 32, 16), (1, 4, 128, 64, 64), (2, 1, 256, 16, 128),
               (1, 2, 64, 64, 64), (1, 2, 96, 128, 32)]
 ATTN_TOL = {torch.float32: (2e-6, 2e-6), torch.bfloat16: (1e-5, 1.6e-2)}
@@ -162,13 +170,29 @@ def _rwkv(b, h, t, d, dtype, seed):
 def test_flash_attention_kernel_matches_plain(b, h, kv, sq, skv, d, causal,
                                               window, blk, dtype):
     _need_cuda()
+    _check_attention(b, h, kv, sq, skv, d, causal, window, blk, dtype)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,blk", SM90_CASES,
+                         ids=["x".join(map(str, c)) for c in SM90_CASES])
+def test_flash_attention_sm90_kernel_matches_plain(b, h, kv, sq, skv, d,
+                                                   causal, window, blk):
+    _need_cuda()
+    _check_attention(b, h, kv, sq, skv, d, causal, window, blk,
+                     torch.bfloat16)
+
+
+def _check_attention(b, h, kv, sq, skv, d, causal, window, blk, dtype):
     q, k, v = _attn(b, h, kv, sq, skv, d, dtype, seed=sq + skv + d)
     want = mha_reference(q, k, v, causal=causal, window=window)
-    before = cuda_flash_attention.launches
+    fa = cuda_flash_attention
+    before = (fa.launches, fa.launches_sm90, fa.launches_f32)
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               block_q=blk, block_kv=blk)
     torch.cuda.synchronize()
-    assert cuda_flash_attention.launches == before + 1
+    bf16 = dtype == torch.bfloat16
+    assert (fa.launches, fa.launches_sm90, fa.launches_f32) == (
+        before[0] + 1, before[1] + bf16, before[2] + (not bf16))
     assert got.dtype == dtype and got.shape == (b, h, sq, d)
     atol, rtol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,

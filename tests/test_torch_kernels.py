@@ -23,6 +23,7 @@ from repro.kernels.ref import mha_reference as jax_mha_reference
 from repro.kernels.ref import rwkv6_reference as jax_rwkv6_reference
 from repro_torch import kernels
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import ROUTES as ATTN_ROUTES
 from repro_torch.kernels.flash_attention import \
     flash_attention as cuda_flash_attention
 from repro_torch.kernels.rwkv6_scan import rwkv6_chunked as cuda_rwkv6_chunked
@@ -130,6 +131,39 @@ def test_flash_attention_end_aligned_prefill(window):
                                        interpret=True), 2e-6)
 
 
+# The bf16 kernel's precision contract: P split into two bf16 halves meets
+# the card's bf16 limit against the f32 reference, P rounded to bf16 does
+# not. (B, H, KV, S, D), bf16 causal.
+SPLIT_P_SHAPES = [(1, 8, 2, 1024, 128), (1, 4, 1, 2048, 64)]
+CARD_BF16_TOL = (1e-5, 1.6e-2)        # (atol, rtol) of the card's checks
+
+
+def _over_card_limit(got, want):
+    atol, rtol = CARD_BF16_TOL
+    g, w = _f32(got), _f32(want)
+    return int((np.abs(g - w) > atol + rtol * np.abs(w)).sum())
+
+
+def _p_in_bf16(q, k, v):
+    """Causal attention with P rounded to bf16 before the product with v
+    (l from the f32 P): the fault the split into halves repairs."""
+    sc = ref._scores(q, k, causal=True, window=0)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    o = torch.einsum("bkgqs,bksd->bkgqd", p.bfloat16().float(), v.float())
+    return (o / p.sum(-1, keepdim=True)).reshape(q.shape).bfloat16()
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", SPLIT_P_SHAPES,
+                         ids=_ids(SPLIT_P_SHAPES))
+def test_split_p_meets_the_card_bf16_limit(b, h, kv, s, d):
+    q, k, v = _torch(_attn_inputs(b, h, kv, s, s, d, seed=s + d), "bfloat16")
+    want = ref.mha_reference(q, k, v, causal=True)
+    split = ref.mha_split_p(q, k, v, causal=True)
+    assert split.dtype == torch.bfloat16 and split.shape == q.shape
+    assert _over_card_limit(split, want) == 0
+    assert _over_card_limit(_p_in_bf16(q, k, v), want) > 0
+
+
 # ---------------------------------------------------------------- RWKV6
 def _rwkv_inputs(b, h, t, d, seed, scale=0.5):
     rng = np.random.default_rng(seed)
@@ -224,6 +258,16 @@ def test_ops_refuse_devices_without_kernel():
                           chunk=8)
 
 
+def test_attention_routes_by_dtype_to_built_sources():
+    """bf16 goes to the wgmma kernel, f32 to the FMA kernel; each route
+    names a source that the build compiles."""
+    assert ATTN_ROUTES == {torch.bfloat16: "flash_attention_sm90",
+                           torch.float32: "flash_attention"}
+    assert set(ATTN_ROUTES.values()) <= set(build.KERNELS)
+    for counter in ("launches", "launches_sm90", "launches_f32"):
+        assert isinstance(getattr(cuda_flash_attention, counter), int)
+
+
 def test_kernels_package_exports_the_ops():
     assert kernels.flash_attention is ops.flash_attention
     assert kernels.rwkv6_chunked is ops.rwkv6_chunked
@@ -253,7 +297,8 @@ def test_build_target_covers_source_headers_and_flags(name, monkeypatch,
     assert all(n.startswith(f"lib{name}-") for n in names)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "rwkv6_scan"])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_sm90",
+                                  "rwkv6_scan"])
 def test_failed_build_of_new_kernels_raises(name, monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "nvcc", lambda: "false")
