@@ -11,8 +11,10 @@ Phases, each of which raises on failure (exit code non-zero):
    source, all started together, each timed. For each library, the
    registers, stack, local (spill) and static shared memory of each of
    its kernels, as ``cuobjdump --dump-resource-usage`` reports them. Design
-   check: the bf16 attention library's SASS must hold ``HGMMA`` (wgmma on
-   the tensor cores) and ``UTMALDG`` (TMA loads), or the script stops.
+   checks: the bf16 attention library's SASS must hold ``HGMMA`` (wgmma on
+   the tensor cores) and ``UTMALDG`` (TMA loads), and the RWKV6 library's
+   ``UBLKCP`` or ``UTMALDG`` (bulk or TMA copies) and no ``LDL``/``STL``
+   (no spill of the register-blocked state), or the script stops.
 3. Kernel phase: ``quack_scan``'s CUDA result against its plain torch
    version on the card, both ``compute_lost`` settings, at the main
    path's shape (19, 19, 65536), ragged widths and R = 33 with random
@@ -39,7 +41,8 @@ Phases, each of which raises on failure (exit code non-zero):
    512-token prefill after a 3,584-token cache, end-aligned (F2), and
    mixtral-8x22b's sliding window 4096 at S=8192, H=48 (F3, checked on
    its last 512 query rows); F1's widths at S=2048 in f32 (F4). RWKV6 at
-   rwkv6-7b's widths (H=64, D=64), B=2, T=4096, f32 (R1) and bf16 (R2).
+   rwkv6-7b's widths (H=64, D=64), B=2, T=4096, f32 (R1) and bf16 (R2),
+   and a batched prefill of 512 heads, B=8, f32 (R3).
    Each shape runs once through the op with the launch counters at 0;
    F1-F3 must count on the bf16 route (``flash_attention_sm90.cu``), F4
    on the f32 route (``flash_attention.cu``); every output must agree with
@@ -51,11 +54,18 @@ Phases, each of which raises on failure (exit code non-zero):
    oldest key or the oldest 64 keys of each row dropped, TF32 products in
    f32) must each put entries over it, and the same plain version with no
    fault none; in bf16 so must the bf16 kernel's own contract, P as two
-   bf16 halves (``kernels.ref.mha_split_p``). Then the kernel's device time
-   (CUDA graph over input sets larger than the L2), the plain version's,
-   SDPA's for attention, and the bound; for bf16 the rate counted at 4 D
-   FLOPs a pair, executed at 6 D (two products for P·V), and issued over
-   whole 128 x 128 tiles.
+   bf16 halves (``kernels.ref.mha_split_p``). RWKV6 is checked on every
+   input set it is timed on, each beside plain controls: the kernel's own
+   arithmetic, the u bonus factored out (``kernels.ref.rwkv6_factored``),
+   must meet 1e-4; the bonus dropped, y read from S_t after the update,
+   and k·v rounded to bf16 must each break it. Then the kernel's device
+   time (CUDA graph over input sets larger than the L2), the plain
+   version's, SDPA's for attention, and the bound; for bf16 the rate
+   counted at 4 D FLOPs a pair, executed at 6 D (two products for P·V),
+   and issued over whole 128 x 128 tiles; for RWKV6 the recurrent form's
+   FP32 floor, 3 instructions per state entry and step on every f32 lane
+   at the SM clock ``nvidia-smi`` gives as its maximum, and the SM clock
+   and power draw it samples while the kernel runs back to back.
 
 The last lines are the ``kernels`` JSON line, and then
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -69,6 +79,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -140,20 +151,34 @@ RWKV_SHAPES = [
      (2, 64, 4096, 64), torch.float32),
     ("R2", "rwkv6-7b widths, bf16 inputs", (2, 64, 4096, 64),
      torch.bfloat16),
+    ("R3", "rwkv6-7b widths, a batched prefill of 512 heads",
+     (8, 64, 4096, 64), torch.float32),
 ]
 RWKV_TOL = 1e-4
+# the RWKV6 controls: "u bonus factored" is the kernel's arithmetic
+# (ref.rwkv6_factored) and must meet the limit; each fault must break it
+RWKV_CONTROLS = ("u bonus factored", "u bonus dropped",
+                 "y read from S_t after the update", "k·v rounded to bf16")
+RWKV_SOUND = ("u bonus factored",)
+F32_LANES = 128      # f32 lanes of a Hopper SM
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
+    """``nvidia-smi --query-gpu=<query> --format=csv,noheader`` of the first
+    card."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
 
 
 # ------------------------------------------------------------ phase 3
@@ -352,6 +377,75 @@ def rwkv_bound(shape, dtype):
     size = torch.empty((), dtype=dtype).element_size()
     moved = size * (4 * b * h * t * d + h * d) + 4 * b * h * t * d
     return _bound(moved, 5 * (d * d + d) * t * b * h, F32_FLOPS)
+
+
+def rwkv_floor_ms(shape, sms: int, mhz: float) -> float:
+    """The recurrent form's FP32 floor: 3 f32 instructions per state entry
+    and step (k_i v_j; w_i S + k v; the r_i S product of y) on every f32
+    lane of the card at ``mhz``."""
+    b, h, t, d = shape
+    return 3 * b * h * t * d * d / (sms * F32_LANES * mhz * 1e6) * 1e3
+
+
+def under_load(fn, seconds: float = 1.5):
+    """(median SM clock in MHz, median power draw in W) as ``nvidia-smi``
+    reports them while ``fn()`` runs back to back for ``seconds``; None
+    where it gave no reading."""
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            try:
+                mhz, watts = smi("clocks.sm,power.draw").split(", ")
+                samples.append((float(mhz.split()[0]),
+                                float(watts.split()[0])))
+            except (ValueError, subprocess.SubprocessError):
+                return
+            stop.wait(0.1)
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join()
+    if not samples:
+        return None
+    return (median(sorted(m for m, _ in samples)),
+            median(sorted(w for _, w in samples)))
+
+
+def rwkv_control(r, k, v, w, u, fault):
+    """Plain RWKV6 in the kernel's factored form with one deliberate fault:
+    "u bonus dropped" leaves v_j q out of y; "y read from S_t after the
+    update" reads y from the state that already holds k_t^T v_t; "k·v
+    rounded to bf16" rounds each k_i v_j to bf16 before it enters the
+    state. "u bonus factored" is ``ref.rwkv6_factored``, with no fault."""
+    from repro_torch.kernels.ref import rwkv6_factored
+    if fault == "u bonus factored":
+        return rwkv6_factored(r, k, v, w, u)
+    b, h, t, d = r.shape
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None]
+    S = torch.zeros((b, h, d, d), device=r.device)
+    y = torch.empty((b, h, t, d), device=r.device)
+    for i in range(t):
+        kv = k[:, :, i, :, None] * v[:, :, i, None, :]
+        if fault == "k·v rounded to bf16":
+            kv = kv.bfloat16().float()
+        q = (r[:, :, i] * uf * k[:, :, i]).sum(-1, keepdim=True)
+        if fault == "u bonus dropped":
+            q = torch.zeros_like(q)
+        after = w[:, :, i, :, None] * S + kv
+        read = after if fault == "y read from S_t after the update" else S
+        y[:, :, i] = (torch.einsum("bhk,bhkv->bhv", r[:, :, i], read)
+                      + v[:, :, i] * q)
+        S = after
+    return y
 
 
 def _bound(moved, flops, peak):
@@ -556,22 +650,52 @@ def api_phase(dev):
                             library_ms=median(l_t), mismatches=bad,
                             max_abs_err=err, **bnd)
 
+    mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, src, shape, dtype in RWKV_SHAPES:
-        got = out.pop(name)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want, _ = rwkv6_reference(*rwkv[name])
-        end.record()
-        end.synchronize()
-        plain_ms = start.elapsed_time(end)
-        bad, err, _ = over_tolerance(got, want, RWKV_TOL, RWKV_TOL)
-        del got, want
         sets = input_sets(rwkv[name], lambda: rwkv_inputs(shape, dtype, gen))
+        readings = []
+        for i, a in enumerate(sets):         # the phase's output, then fresh
+            got = out.pop(name) if i == 0 else ops.rwkv6_chunked(*a,
+                                                                 chunk=128)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want, _ = rwkv6_reference(*a)
+            end.record()
+            end.synchronize()
+            if i == 0:
+                plain_ms = start.elapsed_time(end)
+            readings.append(over_tolerance(got, want, RWKV_TOL, RWKV_TOL))
+            del got
+            caught = {}
+            for fault in RWKV_CONTROLS:
+                n, e, share = over_tolerance(rwkv_control(*a, fault), want,
+                                             RWKV_TOL, RWKV_TOL)
+                caught[fault] = n
+                log(f"[api] control {name} set {i} ({fault}): {n} entries "
+                    f"over tolerance {RWKV_TOL}, max |err| {e:.3e}, largest "
+                    f"share of the tolerance used {share:.3f}")
+            del want
+            if any(caught[f] for f in RWKV_SOUND) or not all(
+                    caught[f] for f in caught if f not in RWKV_SOUND):
+                raise AssertionError(f"api: the {name} tolerance does not "
+                                     f"tell the controls apart: {caught}")
+        bad = sum(n for n, _, _ in readings)
+        err = max(e for _, e, _ in readings)
+        log(f"[api] rwkv6_chunked {name} vs plain on {len(sets)} input sets, "
+            f"atol = rtol = {RWKV_TOL:g}: entries over tolerance "
+            f"{[n for n, _, _ in readings]}, max |err| "
+            f"{[f'{e:.3e}' for _, e, _ in readings]}, largest share of the "
+            f"tolerance used {[f'{u:.3f}' for _, _, u in readings]}")
         k_t = graph_ms(lambda *a: ops.rwkv6_chunked(*a, chunk=128), sets,
                        2 * len(sets), replays=3, windows=5)
+        load = under_load(
+            lambda: [ops.rwkv6_chunked(*a, chunk=128) for a in sets])
         del sets
+        torch.cuda.empty_cache()
         bnd = rwkv_bound(shape, dtype)
+        floor = rwkv_floor_ms(shape, sms, mhz)
         ms = median(k_t)
         log(f"[api] rwkv6_chunked {name} ({src}) (B,H,T,D)={shape} "
             f"{str(dtype)[6:]}: {bad} entries over tolerance {RWKV_TOL}, "
@@ -580,7 +704,13 @@ def api_phase(dev):
             f"{plain_ms:.1f} ms (one call, CUDA events, a {shape[2]}-step "
             f"loop); bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
             f"({bnd['flops'] / 1e9:.1f} GFLOP, {bnd['moved'] / 1e6:.1f} MB), "
-            f"{bnd['bound_ms'] / ms:.1%} of it")
+            f"{bnd['bound_ms'] / ms:.1%} of it; FP32 floor {floor:.4f} ms (3 "
+            f"instructions per entry-step, {sms} SMs x {F32_LANES} lanes at "
+            f"{mhz:g} MHz), {floor / ms:.1%} of it; under load "
+            + ("the SM clock and power: not measured" if load is None else
+               f"the SM clock reads {load[0]:g} MHz at {load[1]:g} W "
+               f"(medians of nvidia-smi samples), the floor at that clock "
+               f"{floor * mhz / load[0]:.4f} ms"))
         result[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                             mismatches=bad, max_abs_err=err, **bnd)
 
@@ -793,8 +923,8 @@ def kernel_name(mangled: str) -> str:
 
 
 def inspect_builds(libs: dict) -> None:
-    """Phase 2, continued: each kernel's resources, and the design check of
-    the bf16 attention library."""
+    """Phase 2, continued: each kernel's resources, and the design checks
+    of the bf16 attention and the RWKV6 libraries."""
     for name, lib in libs.items():
         kernel = None
         for line in cuobjdump("--dump-resource-usage", lib).splitlines():
@@ -817,6 +947,15 @@ def inspect_builds(libs: dict) -> None:
         raise AssertionError("flash_attention_sm90: no HGMMA or UTMALDG in "
                              "its SASS; the bf16 path is not on wgmma and "
                              "TMA")
+    sass = cuobjdump("-sass", libs["rwkv6_scan"])
+    ops = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("UBLKCP", "UTMALDG", "LDL", "STL")}
+    log(f"[build] rwkv6_scan SASS: {ops['UBLKCP']} UBLKCP, {ops['UTMALDG']} "
+        f"UTMALDG, {ops['LDL']} LDL and {ops['STL']} STL")
+    if not (ops["UBLKCP"] or ops["UTMALDG"]) or ops["LDL"] or ops["STL"]:
+        raise AssertionError("rwkv6_scan: its SASS needs bulk or TMA copies "
+                             "(UBLKCP or UTMALDG) and no local loads or "
+                             "stores (LDL, STL: a spilled state)")
 
 
 def main() -> int:

@@ -8,8 +8,10 @@ torch version (``ref``) on CPU tensors:
 - ``flash_attention``: causal / sliding-window / grouped-query attention,
   bf16 on ``csrc/flash_attention_sm90.cu`` (wgmma and TMA), f32 on
   ``csrc/flash_attention.cu`` (plain ``ref.mha_reference``);
-- ``rwkv6_chunked``: the RWKV6 recurrence (``csrc/rwkv6_scan.cu``, plain
-  ``ref.rwkv6_reference``).
+- ``rwkv6_chunked``: the RWKV6 recurrence (``csrc/rwkv6_scan.cu``: the
+  state register-blocked, the u bonus factored out, stages filled by bulk
+  copies; plain ``ref.rwkv6_reference``, and ``ref.rwkv6_factored`` the
+  kernel's arithmetic).
 """
 
 from . import ref

@@ -8,7 +8,7 @@ import math
 import torch
 
 __all__ = ["quack_reference", "mha_reference", "mha_split_p",
-           "rwkv6_reference"]
+           "rwkv6_reference", "rwkv6_factored"]
 
 MASK_VALUE = -1e30      # the masked score of the JAX package's attention
 
@@ -118,3 +118,25 @@ def rwkv6_reference(r, k, v, w, u, state=None):
         y[:, :, i] = torch.einsum("bhk,bhkv->bhv", r[:, :, i], S + bonus * kv)
         S = w[:, :, i, :, None] * S + kv
     return y, S
+
+
+def rwkv6_factored(r, k, v, w, u):
+    """``rwkv6_reference``'s y with the arithmetic the CUDA kernel
+    promises: the u bonus factored out of the (D,D) work,
+
+      y_t[j] = r_t . S_{t-1}[:, j] + v_t[j] q_t,  q_t = sum_i r_t[i] u[i] k_t[i]
+
+    and S_t = diag(w_t) S_{t-1} + k_t^T v_t, in f32 from a zero state. A
+    plain oracle of the contract, called by tests and checks only, never
+    on an op's path. Returns y (B,H,T,D) f32."""
+    b, h, t, d = r.shape
+    r, k, v, w = (x.to(torch.float32) for x in (r, k, v, w))
+    uf = u.to(torch.float32)[None]
+    S = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    y = torch.empty((b, h, t, d), dtype=torch.float32, device=r.device)
+    for i in range(t):
+        q = (r[:, :, i] * uf * k[:, :, i]).sum(-1, keepdim=True)
+        y[:, :, i] = (torch.einsum("bhk,bhkv->bhv", r[:, :, i], S)
+                      + v[:, :, i] * q)
+        S = w[:, :, i, :, None] * S + k[:, :, i, :, None] * v[:, :, i, None, :]
+    return y

@@ -6,9 +6,14 @@ Per (b, h), from a zero (D,D) f32 state::
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
 
 The kernel is CUDA C++ for Hopper, built with ``nvcc`` at first use
-(``kernels.build``) and launched on PyTorch's current stream. Its plain
-torch version is ``kernels.ref.rwkv6_reference``; ``kernels.ops.
-rwkv6_chunked`` picks between the two by the device of the tensors.
+(``kernels.build``) and launched on PyTorch's current stream. One block
+owns a (b, h) and keeps S in registers, a 4 x 8 tile a thread; r, k, w, v
+arrive through ``cp.async.bulk`` copies into three shared-memory stages.
+It computes the bonus factored as ``y_j = r S_{t-1}[:, j] + v_j q`` with
+``q = sum_i r_i u_i k_i``, the arithmetic of ``kernels.ref.
+rwkv6_factored``. Its plain torch version is ``kernels.ref.
+rwkv6_reference``; ``kernels.ops.rwkv6_chunked`` picks between the two by
+the device of the tensors.
 """
 
 from __future__ import annotations
@@ -58,9 +63,10 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor, *,
                   chunk: int = 128) -> torch.Tensor:
     """Launch the CUDA kernel. All five tensors lie on one CUDA device,
-    are contiguous and share one dtype, float32 or bfloat16; D is 16, 32,
-    64 or 128. ``chunk`` only sets the contract T % chunk == 0: the state
-    never leaves the kernel's registers. Returns y (B,H,T,D) float32."""
+    are contiguous, start on a 16-byte boundary (the bulk copies' unit) and
+    share one dtype, float32 or bfloat16; D is 16, 32, 64 or 128.
+    ``chunk`` only sets the contract T % chunk == 0: the state never
+    leaves the kernel's registers. Returns y (B,H,T,D) float32."""
     require_cuda("rwkv6_chunked", r)
     check_rwkv6_args(r, k, v, w, u, chunk)
     b, h, t, d = r.shape
@@ -72,8 +78,8 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"bfloat16")
     check = functools.partial(check_tensor, "rwkv6_chunked")
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
-        check(name, x, r.dtype, r.shape, r.device)
-    check("u", u, r.dtype, (h, d), r.device)
+        check(name, x, r.dtype, r.shape, r.device, align=16)
+    check("u", u, r.dtype, (h, d), r.device, align=16)
 
     y = torch.empty((b, h, t, d), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):

@@ -140,8 +140,17 @@ ATTN_CASES = (
 # multiple of the block, so the last block holds rows past Sq)
 SM90_CASES = ([(1, 8, 2, 1024, 1024, 128, True, w, 128) for w in (0, 300)]
               + [(1, 4, 2, 192, 300, d, True, 0, 4) for d in (16, 32, 64, 128)])
+# (B, H, T, D, chunk): the JAX test grid and D = 128; T that is not a
+# multiple of the stage depth the kernel picks (8 to 256 steps, by D, the
+# dtype and the heads a SM), so the last stage is short, with fewer stages
+# than the kernel's three, at D = 16, 32, 64 and 128 (several heads);
+# long T, whose stages are refilled many times; more heads than the card
+# has SMs
 RWKV_CASES = [(2, 2, 64, 32, 16), (1, 4, 128, 64, 64), (2, 1, 256, 16, 128),
-              (1, 2, 64, 64, 64), (1, 2, 96, 128, 32)]
+              (1, 2, 64, 64, 64), (1, 2, 96, 128, 32),
+              (1, 3, 24, 16, 8), (2, 3, 48, 32, 16), (1, 2, 40, 64, 8),
+              (2, 3, 80, 128, 16), (1, 2, 1032, 64, 8), (1, 1, 520, 128, 8),
+              (4, 64, 128, 64, 64)]
 ATTN_TOL = {torch.float32: (2e-6, 2e-6), torch.bfloat16: (1e-5, 1.6e-2)}
 
 
@@ -260,3 +269,7 @@ def test_rwkv6_kernel_rejects_bad_inputs():
         cuda_rwkv6_chunked(r, k, v, w, u, chunk=48)
     with pytest.raises(ValueError, match="head dim"):
         cuda_rwkv6_chunked(*_rwkv(1, 2, 64, 24, torch.float32, 3), chunk=32)
+    shifted = torch.empty(r.numel() + 1, device="cuda")[1:].view(r.shape)
+    shifted.copy_(r)                       # contiguous, 4 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_rwkv6_chunked(shifted, k, v, w, u, chunk=32)

@@ -196,6 +196,37 @@ def test_rwkv6_bf16_inputs():
     _close(y, pallas_rwkv6_chunked(*jx, chunk=32, interpret=True), 1e-4)
 
 
+# The RWKV6 kernel's arithmetic: the u bonus factored out of the (D,D)
+# work, y_j = r . S_{t-1}[:, j] + v_j q, q = sum_i r_i u_i k_i. It must meet
+# the 1e-4 limit against the JAX reference and the Pallas kernel, and the
+# limit must catch a bonus dropped (u = 0). (B, H, T, D, chunk)
+FACTORED_SHAPES = [(2, 2, 64, 32, 16), (1, 2, 64, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype,scale", [("float32", 0.5), ("bfloat16", 1.0)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,d,chunk", FACTORED_SHAPES,
+                         ids=_ids(FACTORED_SHAPES))
+def test_rwkv6_factored_matches_jax(b, h, t, d, chunk, dtype, scale):
+    arrays = _rwkv_inputs(b, h, t, d, seed=t + d + 1, scale=scale)
+    y = ref.rwkv6_factored(*_torch(arrays, dtype))
+    assert y.dtype == torch.float32 and y.shape == (b, h, t, d)
+    jx = _jax(arrays, dtype)
+    _close(y, jax_rwkv6_reference(*jx)[0], 1e-4)
+    _close(y, pallas_rwkv6_chunked(*jx, chunk=chunk, interpret=True), 1e-4)
+
+
+def test_rwkv6_limit_catches_a_dropped_bonus():
+    r, k, v, w, u = _torch(_rwkv_inputs(1, 2, 64, 32, seed=21), "float32")
+    want = _f32(ref.rwkv6_reference(r, k, v, w, u)[0])
+
+    def over(y):
+        return int((np.abs(_f32(y) - want) > 1e-4 + 1e-4 * np.abs(want)).sum())
+
+    assert over(ref.rwkv6_factored(r, k, v, w, u)) == 0
+    assert over(ref.rwkv6_factored(r, k, v, w, torch.zeros_like(u))) > 0
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 def test_rwkv6_reference_final_state_matches_jax(with_state):
     arrays = _rwkv_inputs(2, 2, 48, 16, seed=13)
