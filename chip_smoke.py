@@ -12,9 +12,11 @@ Phases, each of which raises on failure (exit code non-zero):
    registers, stack, local (spill) and static shared memory of each of
    its kernels, as ``cuobjdump --dump-resource-usage`` reports them. Design
    checks: the bf16 attention library's SASS must hold ``HGMMA`` (wgmma on
-   the tensor cores) and ``UTMALDG`` (TMA loads), and the RWKV6 library's
-   ``UBLKCP`` or ``UTMALDG`` (bulk or TMA copies) and no ``LDL``/``STL``
-   (no spill of the register-blocked state), or the script stops.
+   the tensor cores) and ``UTMALDG`` (TMA loads), the f32 attention
+   library's tf32 ``HGMMA`` and ``UTMALDG`` and no ``LDL``/``STL``, and the
+   RWKV6 library's ``UBLKCP`` or ``UTMALDG`` (bulk or TMA copies) and no
+   ``LDL``/``STL`` (no spill of the register-blocked state), or the script
+   stops.
 3. Kernel phase: ``quack_scan``'s CUDA result against its plain torch
    version on the card, both ``compute_lost`` settings, at the main
    path's shape (19, 19, 65536), ragged widths and R = 33 with random
@@ -40,29 +42,33 @@ Phases, each of which raises on failure (exit code non-zero):
    granite-8b's causal prefill (F1: B=1, H=32, KV=8, S=4096, D=128), a
    512-token prefill after a 3,584-token cache, end-aligned (F2), and
    mixtral-8x22b's sliding window 4096 at S=8192, H=48 (F3, checked on
-   its last 512 query rows); F1's widths at S=2048 in f32 (F4). RWKV6 at
-   rwkv6-7b's widths (H=64, D=64), B=2, T=4096, f32 (R1) and bf16 (R2),
-   and a batched prefill of 512 heads, B=8, f32 (R3).
+   its last 512 query rows); in f32, F1's widths at S=2048 (F4) and F3's
+   (F5, checked on its last 512 query rows). RWKV6 at rwkv6-7b's widths
+   (H=64, D=64), B=2, T=4096, f32 (R1) and bf16 (R2), and a batched
+   prefill of 512 heads, B=8, f32 (R3).
    Each shape runs once through the op with the launch counters at 0;
    F1-F3 must count on the bf16 route (``flash_attention_sm90.cu``), F4
-   on the f32 route (``flash_attention.cu``); every output must agree with
-   the plain torch version on the card
+   and F5 on the f32 route (``flash_attention_f32_sm90.cu``); every output
+   must agree with the plain torch version on the card
    (allclose: attention bf16 atol 1e-5, rtol 1.6e-2, f32 atol = rtol =
    2e-6; RWKV6 1e-4), attention on four input sets. Controls show that
    the attention tolerance catches a wrong result: on the last 512 query
    rows, plain versions with one deliberate fault (P rounded to bf16, the
    oldest key or the oldest 64 keys of each row dropped, TF32 products in
    f32) must each put entries over it, and the same plain version with no
-   fault none; in bf16 so must the bf16 kernel's own contract, P as two
-   bf16 halves (``kernels.ref.mha_split_p``). RWKV6 is checked on every
+   fault none; so must each kernel's own contract: in bf16 P as two bf16
+   halves (``kernels.ref.mha_split_p``), in f32 three TF32 passes
+   (``kernels.ref.mha_split_tf32``). RWKV6 is checked on every
    input set it is timed on, each beside plain controls: the kernel's own
    arithmetic, the u bonus factored out (``kernels.ref.rwkv6_factored``),
    must meet 1e-4; the bonus dropped, y read from S_t after the update,
    and k·v rounded to bf16 must each break it. Then the kernel's device
    time (CUDA graph over input sets larger than the L2), the plain
-   version's, SDPA's for attention, and the bound; for bf16 the rate
-   counted at 4 D FLOPs a pair, executed at 6 D (two products for P·V),
-   and issued over whole 128 x 128 tiles; for RWKV6 the recurrent form's
+   version's, SDPA's for attention, and the bound (f32: three TF32 passes
+   at the TF32 peak, the old FMA design's ceiling beside it); the rate
+   counted at 4 D FLOPs a pair, executed (bf16 6 D: two products for P·V;
+   f32 12 D: three passes) and issued over the kernel's whole tiles; for
+   f32 the SM clock and power under load; for RWKV6 the recurrent form's
    FP32 floor, 3 instructions per state entry and step on every f32 lane
    at the SM clock ``nvidia-smi`` gives as its maximum, and the SM clock
    and power draw it samples while the kernel runs back to back.
@@ -90,10 +96,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
+# outside the tensor cores, dense bf16 and TF32 FLOP/s on the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
 L2_BYTES = 50e6
 SHAPE = (19, 19, 65536)          # (n_s, n_r, M) of the full-size phase
 # rounds of the full-size runs: failure-free completes at round 869; the
@@ -109,7 +116,7 @@ KERNEL_FILES = {
                            "src/repro/kernels/quack_scan.py:84"),
     "flash_attention": (f"{CSRC}/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:72"),
-    "flash_attention_f32": (f"{CSRC}/flash_attention.cu",
+    "flash_attention_f32": (f"{CSRC}/flash_attention_f32_sm90.cu",
                             "src/repro/kernels/flash_attention.py:72"),
     "rwkv6_chunked": (f"{CSRC}/rwkv6_scan.cu",
                       "src/repro/kernels/rwkv6_scan.py:63"),
@@ -125,6 +132,8 @@ ATTN_SHAPES = [
      (1, 48, 8, 8192, 8192, 128), torch.bfloat16, 4096, 512),
     ("F4", "granite-8b widths in f32", (1, 32, 8, 2048, 2048, 128),
      torch.float32, 0, None),
+    ("F5", "mixtral-8x22b widths in f32, src/repro/configs/mixtral_8x22b.py"
+     ":11-14", (1, 48, 8, 8192, 8192, 128), torch.float32, 4096, 512),
 ]
 # attention tolerances (atol, rtol), as np.allclose applies them. bf16:
 # a bf16 output step is at most 2**-7 of its value, so rtol is two steps;
@@ -135,16 +144,19 @@ ATTN_TOL = {torch.bfloat16: (1e-5, 1.6e-2), torch.float32: (2e-6, 2e-6)}
 CHECK_SETS = 4        # input sets each attention shape is checked on
 CONTROL_ROWS = 512    # query rows, the last of each shape, of the controls
 # the faults of the controls; "none" is the control's own plain version,
-# and "P as two bf16 halves" the bf16 kernel's arithmetic
-# (ref.mha_split_p): both must pass. TF32 keeps a bf16 input exact, so it
-# is an f32 fault.
+# "P as two bf16 halves" the bf16 kernel's arithmetic (ref.mha_split_p)
+# and "three TF32 passes" the f32 kernel's (ref.mha_split_tf32): these
+# must pass. TF32 keeps a bf16 input exact, so one TF32 pass is an f32
+# fault.
 CONTROLS = {torch.bfloat16: ("none", "P as two bf16 halves", "P in bf16",
                              "oldest key dropped", "oldest 64 keys dropped"),
-            torch.float32: ("none", "P in bf16", "oldest key dropped",
-                            "oldest 64 keys dropped", "TF32 products")}
-SOUND = ("none", "P as two bf16 halves")
-# the bf16 kernel's tiles: 128 query rows a block, 128 keys a tile
-SM90_BQ = SM90_BKV = 128
+            torch.float32: ("none", "three TF32 passes", "P in bf16",
+                            "oldest key dropped", "oldest 64 keys dropped",
+                            "TF32 products")}
+SOUND = ("none", "P as two bf16 halves", "three TF32 passes")
+# the attention kernels' tiles (query rows a block, keys a tile): bf16
+# 128 x 128; f32 64 x 64
+ATTN_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
 # (name, source, (B, H, T, D), dtype); chunk 128
 RWKV_SHAPES = [
     ("R1", "rwkv6-7b, src/repro/configs/rwkv6_7b.py:10-12",
@@ -341,31 +353,38 @@ def attn_pairs(sq: int, skv: int, window: int) -> int:
     return int(np.where(n > 0, n, skv).sum())
 
 
-def attn_tiles(sq: int, skv: int, window: int) -> int:
-    """kv tiles the bf16 kernel visits for one causal head, summed over its
-    128-row query blocks, by the kernel's skipping rule: a block with a
-    row that sees no key visits every tile."""
+def attn_tiles(sq: int, skv: int, window: int, bq: int, bkv: int) -> int:
+    """kv tiles an attention kernel visits for one causal head, summed
+    over its ``bq``-row query blocks of ``bkv``-key tiles, by the kernels'
+    skipping rule: a block with a row that sees no key visits every
+    tile."""
     n = 0
-    for q0 in range(0, sq, SM90_BQ):
-        lo, hi = skv - sq + q0, skv - sq + min(q0 + SM90_BQ, sq) - 1
-        t_lo, t_hi = 0, (skv - 1) // SM90_BKV
+    for q0 in range(0, sq, bq):
+        lo, hi = skv - sq + q0, skv - sq + min(q0 + bq, sq) - 1
+        t_lo, t_hi = 0, (skv - 1) // bkv
         if lo >= 0:
-            t_hi = min(t_hi, hi // SM90_BKV)
+            t_hi = min(t_hi, hi // bkv)
             if window > 0:
-                t_lo = max(0, lo - window + 1) // SM90_BKV
+                t_lo = max(0, lo - window + 1) // bkv
         n += t_hi - t_lo + 1
     return n
 
 
 def attn_bound(shape, dtype, window):
-    """Least time: 4 D FLOPs per computed pair (two products) at the
-    type's peak, vs q, k, v read once and o written once."""
+    """Least time: 4 D FLOPs per computed pair (two products) on the
+    tensor cores, bf16 at its peak, f32 in the three TF32 passes the 2e-6
+    limit asks for at the TF32 peak, vs q, k, v read once and o written
+    once. ``flops`` stays the count at 4 D a pair; for f32 ``fma_ms`` is
+    the old FMA design's ceiling, the same FLOPs at the f32 FMA peak."""
     b, h, kv, sq, skv, d = shape
     size = torch.empty((), dtype=dtype).element_size()
     moved = size * (2 * b * h * sq * d + 2 * b * kv * skv * d)
     flops = 4 * d * attn_pairs(sq, skv, window) * b * h
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    return _bound(moved, flops, peak)
+    if dtype == torch.bfloat16:
+        return _bound(moved, flops, BF16_FLOPS)
+    out = _bound(moved, 3 * flops, TF32_FLOPS)
+    out.update(flops=flops, fma_ms=flops / F32_FLOPS * 1e3)
+    return out
 
 
 def rwkv_bound(shape, dtype):
@@ -471,11 +490,17 @@ def attention_control(q, k, v, window, fault):
     bf16 before the product with v; "oldest key dropped" and "oldest 64
     keys dropped" mask the first unmasked keys of every row (the window
     moved in by one key or one tile); "TF32 products" lets both products
-    use TF32; "none" is the same computation without a fault; "P as two
-    bf16 halves" is ``ref.mha_split_p``, the bf16 kernel's arithmetic."""
+    use TF32 (one pass); "none" is the same computation without a fault;
+    "P as two bf16 halves" is ``ref.mha_split_p``, the bf16 kernel's
+    arithmetic, and "three TF32 passes" ``ref.mha_split_tf32``, the f32
+    kernel's split (rounded to nearest, where the tensor cores
+    truncate)."""
     if fault == "P as two bf16 halves":
         from repro_torch.kernels.ref import mha_split_p
         return mha_split_p(q, k, v, causal=True, window=window)
+    if fault == "three TF32 passes":
+        from repro_torch.kernels.ref import mha_split_tf32
+        return mha_split_tf32(q, k, v, causal=True, window=window)
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     pos = skv - sq + torch.arange(sq, device=q.device)[:, None]
@@ -546,7 +571,7 @@ def api_phase(dev):
     rwkv = {n: rwkv_inputs(shp, dt, gen) for n, _, shp, dt in RWKV_SHAPES}
 
     # the phase's path: every shape once through the public ops, counted
-    # by route: bf16 on the wgmma kernel, f32 on the FMA kernel
+    # by route: bf16 on the wgmma kernel, f32 on the 3xTF32 wgmma kernel
     torch.cuda.synchronize()
     fa.launches = fa.launches_sm90 = fa.launches_f32 = rk.launches = 0
     out = {}
@@ -623,29 +648,42 @@ def api_phase(dev):
         sdpa, expand = sdpa_fn(sq, skv, window, h // kv)
         l_t = graph_ms(sdpa, [(q, expand(k), expand(v)) for q, k, v in sets],
                        len(sets), replays=1, windows=3)
+        load = (None if dtype == torch.bfloat16 else
+                under_load(lambda: [kern(*a) for a in sets]))
         n_sets = len(sets)
         del sets
         torch.cuda.empty_cache()
         bnd = attn_bound(shape, dtype, window)
         ms = median(k_t)
-        rate = f"{bnd['flops'] / ms / 1e9:.2f} TFLOP/s"
+        passes = 1.5 if dtype == torch.bfloat16 else 3.0
+        bq, bkv = ATTN_TILES[dtype]
+        issued = (4 * passes * d * bq * bkv
+                  * attn_tiles(sq, skv, window, bq, bkv) * b * h)
+        rate = (f"{bnd['flops'] / ms / 1e9:.2f} TFLOP/s counted (4 D a pair), "
+                f"{passes * bnd['flops'] / ms / 1e9:.2f} executed "
+                f"({4 * passes:g} D a pair), {issued / ms / 1e9:.2f} issued "
+                f"over whole {bq} x {bkv} tiles ({issued / 1e9:.1f} GFLOP)")
         if dtype == torch.bfloat16:
-            issued = 6 * d * SM90_BQ * SM90_BKV * attn_tiles(sq, skv,
-                                                             window) * b * h
-            rate = (f"{rate} counted (4 D a pair), "
-                    f"{1.5 * bnd['flops'] / ms / 1e9:.2f} executed (6 D a "
-                    f"pair), {issued / ms / 1e9:.2f} issued over whole "
-                    f"{SM90_BQ} x {SM90_BKV} tiles ({issued / 1e9:.1f} "
-                    f"GFLOP)")
+            work = f"{bnd['flops'] / 1e9:.1f} GFLOP at {BF16_FLOPS / 1e12:g}"
+        else:
+            work = (f"3 TF32 passes of {bnd['flops'] / 1e9:.1f} GFLOP at "
+                    f"{TF32_FLOPS / 1e12:g}")
+        fma = ("" if dtype == torch.bfloat16 else
+               f"; the FMA design's ceiling {bnd['fma_ms']:.4f} ms "
+               f"({F32_FLOPS / 1e12:g} TFLOP/s f32); under load " + (
+                   "the SM clock and power: not measured" if load is None
+                   else f"the SM clock reads {load[0]:g} MHz at {load[1]:g} "
+                   f"W (medians of nvidia-smi samples)"))
         log(f"[api] flash_attention {name} ({src}) (B,H,KV,Sq,Skv,D)="
             f"{shape} {str(dtype)[6:]} causal window={window}: {bad} "
             f"entries over tolerance ({checked}), max |err| {err:.3e}; "
             f"{ms:.4f} ms/call median of {len(k_t)} windows (min "
             f"{k_t[0]:.4f}, max {k_t[-1]:.4f}), {rate}; plain torch "
-            f"{median(p_t):.4f} ms ({checked}); SDPA {median(l_t):.4f} ms; "
-            f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
-            f"({bnd['flops'] / 1e9:.1f} GFLOP, {bnd['moved'] / 1e6:.1f} MB), "
-            f"{bnd['bound_ms'] / ms:.1%} of it; {n_sets} input sets")
+            f"{median(p_t):.4f} ms ({checked}); SDPA {median(l_t):.4f} ms "
+            f"(all rows); bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']} ({work} TFLOP/s, {bnd['moved'] / 1e6:.1f} "
+            f"MB), {bnd['bound_ms'] / ms:.1%} of it{fma}; {n_sets} input "
+            f"sets")
         result[name] = dict(ms=ms, plain_ms=median(p_t),
                             library_ms=median(l_t), mismatches=bad,
                             max_abs_err=err, **bnd)
@@ -924,7 +962,7 @@ def kernel_name(mangled: str) -> str:
 
 def inspect_builds(libs: dict) -> None:
     """Phase 2, continued: each kernel's resources, and the design checks
-    of the bf16 attention and the RWKV6 libraries."""
+    of the attention and the RWKV6 libraries."""
     for name, lib in libs.items():
         kernel = None
         for line in cuobjdump("--dump-resource-usage", lib).splitlines():
@@ -947,6 +985,16 @@ def inspect_builds(libs: dict) -> None:
         raise AssertionError("flash_attention_sm90: no HGMMA or UTMALDG in "
                              "its SASS; the bf16 path is not on wgmma and "
                              "TMA")
+    sass = cuobjdump("-sass", libs["flash_attention_f32_sm90"])
+    ops = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("UTMALDG", "LDL", "STL")}
+    tf32 = len(re.findall(r"\bHGMMA\.\S*\.TF32\b", sass))
+    log(f"[build] flash_attention_f32_sm90 SASS: {tf32} tf32 HGMMA, "
+        f"{ops['UTMALDG']} UTMALDG, {ops['LDL']} LDL and {ops['STL']} STL")
+    if not (tf32 and ops["UTMALDG"]) or ops["LDL"] or ops["STL"]:
+        raise AssertionError("flash_attention_f32_sm90: its SASS needs tf32 "
+                             "HGMMA and UTMALDG and no local loads or stores "
+                             "(LDL, STL: spilled accumulators)")
     sass = cuobjdump("-sass", libs["rwkv6_scan"])
     ops = {op: len(re.findall(rf"\b{op}\b", sass))
            for op in ("UBLKCP", "UTMALDG", "LDL", "STL")}

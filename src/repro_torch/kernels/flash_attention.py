@@ -7,12 +7,15 @@ scores -1e30, f32 sums, output in q's dtype.
 
 The route is fixed by dtype, before launch: bfloat16 goes to
 ``csrc/flash_attention_sm90.cu`` (wgmma and TMA, P split into two bf16
-halves), float32 to ``csrc/flash_attention.cu`` (the f32 FMA pipes, no
-TF32). Both are CUDA C++ for Hopper, built with ``nvcc`` at first use
-(``kernels.build``) and launched on PyTorch's current stream; a failed
-build or launch raises. Their plain torch version is
-``kernels.ref.mha_reference``; ``kernels.ops.flash_attention`` picks
-between kernel and plain version by the device of the tensors.
+halves), float32 to ``csrc/flash_attention_f32_sm90.cu`` (wgmma and TMA
+in three TF32 passes, each operand split into two tf32 halves, after a
+pre-pass that splits k and transposes v into a workspace). Both are CUDA
+C++ for Hopper, built with ``nvcc`` at first use (``kernels.build``) and
+launched on PyTorch's current stream; a failed build or launch raises.
+Their plain torch version is ``kernels.ref.mha_reference``;
+``ref.mha_split_p`` and ``ref.mha_split_tf32`` are the two kernels'
+splits. ``kernels.ops.flash_attention`` picks between kernel and
+plain version by the device of the tensors.
 """
 
 from __future__ import annotations
@@ -31,15 +34,23 @@ __all__ = ["flash_attention", "check_attention_args"]
 _HEAD_DIMS = (16, 32, 64, 128)
 # dtype -> the source under csrc/ whose kernel serves it
 ROUTES = {torch.bfloat16: "flash_attention_sm90",
-          torch.float32: "flash_attention"}
+          torch.float32: "flash_attention_f32_sm90"}
+_F32 = ROUTES[torch.float32]
 _MAX_BH = 65535            # the grid's y extent
 
 
 @functools.cache
 def _entry(name: str):
-    fn = getattr(load_library(name), f"{name}_launch")
+    lib = load_library(name)
+    fn = getattr(lib, f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
+    if name == _F32:                   # + the workspace
+        fn.argtypes += [ctypes.c_void_p]
+        size = lib.flash_attention_f32_sm90_workspace
+        size.argtypes = [ctypes.c_int] * 4
+        size.restype = ctypes.c_longlong
+        fn.workspace = size
     fn.restype = ctypes.c_int
     return fn
 
@@ -90,16 +101,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check("q", q, q.dtype, q.shape, q.device)
     check("k", k, q.dtype, k.shape, q.device)
     check("v", v, q.dtype, k.shape, q.device)
+    route = ROUTES[q.dtype]
     # a window at least Skv masks nothing; clamping keeps int32 positions
     window = min(int(window), skv) if window > 0 else 0
 
-    route = ROUTES[q.dtype]
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), b, h, n_kv, sq, skv, d,
-                           int(bool(causal)), window, math.sqrt(d), stream)
+        fn = _entry(route)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
+                n_kv, sq, skv, d, int(bool(causal)), window, math.sqrt(d),
+                stream]
+        if route == _F32:
+            ws = torch.empty(fn.workspace(b, n_kv, skv, d),
+                             dtype=torch.float32, device=q.device)
+            args.append(ws.data_ptr())
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"flash_attention: {route} launch failed with "
                            f"CUDA error {rc}")
@@ -112,7 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # launches of the kernels: all, then by route (bf16 on
-# flash_attention_sm90.cu, f32 on flash_attention.cu)
+# flash_attention_sm90.cu, f32 on flash_attention_f32_sm90.cu)
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
 flash_attention.launches_f32 = 0

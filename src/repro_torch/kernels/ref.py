@@ -8,7 +8,7 @@ import math
 import torch
 
 __all__ = ["quack_reference", "mha_reference", "mha_split_p",
-           "rwkv6_reference", "rwkv6_factored"]
+           "mha_split_tf32", "rwkv6_reference", "rwkv6_factored"]
 
 MASK_VALUE = -1e30      # the masked score of the JAX package's attention
 
@@ -46,22 +46,33 @@ def quack_reference(claims, complaints, stakes, quack_thresh, dup_thresh,
     return quacked, lost, prefix.to(torch.int32)
 
 
-def _scores(q, k, *, causal: bool, window: int):
-    """(B,KV,H/KV,Sq,Skv) f32 scores of ``mha_reference``, masked with
-    -1e30."""
-    b, h, sq, d = q.shape
-    n_kv, skv = k.shape[1], k.shape[2]
-    qr = q.reshape(b, n_kv, h // n_kv, sq, d).to(torch.float32)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qr, k.to(torch.float32))
-    s = s / math.sqrt(d)
-    q_pos = (skv - sq) + torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(skv, device=q.device)[None, :]
-    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+def _mask(s, *, causal: bool, window: int):
+    """(..., Sq, Skv) scores with the masked keys at -1e30: query i at
+    position Skv - Sq + i, key j masked when causal and j > position or
+    when window > 0 and j <= position - window."""
+    sq, skv = s.shape[-2:]
+    q_pos = (skv - sq) + torch.arange(sq, device=s.device)[:, None]
+    k_pos = torch.arange(skv, device=s.device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=s.device)
     if causal:
         ok &= k_pos <= q_pos
     if window > 0:
         ok &= k_pos > q_pos - window
     return s.masked_fill(~ok, MASK_VALUE)
+
+
+def _grouped(q, k):
+    """q as (B,KV,H/KV,Sq,D) f32, beside k's (B,KV,Skv,D)."""
+    b, h, sq, d = q.shape
+    n_kv = k.shape[1]
+    return q.reshape(b, n_kv, h // n_kv, sq, d).to(torch.float32)
+
+
+def _scores(q, k, *, causal: bool, window: int):
+    """(B,KV,H/KV,Sq,Skv) f32 scores of ``mha_reference``, masked with
+    -1e30."""
+    s = torch.einsum("bkgqd,bksd->bkgqs", _grouped(q, k), k.to(torch.float32))
+    return _mask(s / math.sqrt(q.shape[-1]), causal=causal, window=window)
 
 
 def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
@@ -94,6 +105,49 @@ def mha_split_p(q, k, v, *, causal: bool = True, window: int = 0):
     vf = v.to(torch.float32)
     o = (torch.einsum("bkgqs,bksd->bkgqd", p_hi, vf)
          + torch.einsum("bkgqs,bksd->bkgqd", p_lo, vf)) / l
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def tf32_rn(x):
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds: to nearest, ties away from zero, on the bit pattern (add
+    0x1000, clear the low 13 bits). Returns f32."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def _split_tf32(x):
+    """x = hi + lo with hi = tf32(x), lo = tf32(x - hi)."""
+    hi = tf32_rn(x)
+    return hi, tf32_rn(x.to(torch.float32) - hi)
+
+
+def mha_split_tf32(q, k, v, *, causal: bool = True, window: int = 0):
+    """``mha_reference`` with the split the f32 attention kernel makes:
+    every product in three TF32 passes. q, k, v and P are split as
+    x = hi + lo, hi = tf32(x), lo = tf32(x - hi) (``tf32_rn``);
+    S = Q_hi K_hi^T + (Q_hi K_lo^T + Q_lo K_hi^T) in f32, times the f32
+    reciprocal of sqrt(D), masked with -1e30; P = exp(S - max) in f32 and l
+    its row sum; O = (P_hi V_hi + (P_hi V_lo + P_lo V_hi)) / max(l, 1e-30).
+    The sums here round to nearest over whole rows. The kernel's tensor
+    cores round toward zero as they accumulate, which this does not model:
+    the kernel keeps that drift inside 2e-6 by starting each 64-key tile's
+    P V from zero (``tests/test_torch_kernels.py`` models the truncation).
+    A plain oracle of the split, called by tests and checks only, never
+    on an op's path."""
+    d = q.shape[-1]
+
+    def product(eq, a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = _split_tf32(a), _split_tf32(b)
+        small = torch.einsum(eq, a_hi, b_lo) + torch.einsum(eq, a_lo, b_hi)
+        return torch.einsum(eq, a_hi, b_hi) + small
+
+    s = product("bkgqd,bksd->bkgqs", _grouped(q, k), k)
+    scale = 1.0 / torch.tensor(math.sqrt(d), dtype=torch.float32)
+    s = _mask(s * scale.to(s.device), causal=causal, window=window)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = product("bkgqs,bksd->bkgqd", p, v) / l.clamp(min=1e-30)
     return o.reshape(q.shape).to(q.dtype)
 
 

@@ -14,8 +14,9 @@ another order than their plain versions, so they are held to tolerances:
 attention 2e-6 in f32 (the JAX tests'), in bf16 atol 1e-5 and rtol 1.6e-2
 (two bf16 steps, the limit ``chip_smoke.py`` measures against controls),
 RWKV6 1e-4. Attention routes by dtype: every bf16 call must count on the
-wgmma kernel (``launches_sm90``), every f32 call on the FMA kernel
-(``launches_f32``).
+wgmma kernel with P in bf16 halves (``launches_sm90``), every f32 call on
+the wgmma kernel in three TF32 passes (``launches_f32``), which is also
+held against its split in plain torch (``ref.mha_split_tf32``).
 """
 
 import numpy as np
@@ -28,8 +29,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import \
     flash_attention as cuda_flash_attention
 from repro_torch.kernels.quack_scan import quack_scan as cuda_quack_scan
-from repro_torch.kernels.ref import (mha_reference, quack_reference,
-                                     rwkv6_reference)
+from repro_torch.kernels.ref import (mha_reference, mha_split_tf32,
+                                     quack_reference, rwkv6_reference)
 from repro_torch.kernels.rwkv6_scan import rwkv6_chunked as cuda_rwkv6_chunked
 
 pytestmark = pytest.mark.gpu
@@ -206,6 +207,64 @@ def _check_attention(b, h, kv, sq, skv, d, causal, window, blk, dtype):
     atol, rtol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+    return got
+
+
+# f32 only, for the 3xTF32 kernel (64-row blocks, 64-key tiles, the
+# pre-pass's v^T padded to 32 keys): ragged Sq and Skv at every head dim,
+# long causal and windowed rows with GQA, ragged and end-aligned with a
+# window, 64 heads, all-masked rows
+F32_CASES = ([(1, 4, 2, 100, 300, d, True, 0, 4) for d in (16, 32, 64, 128)]
+             + [(1, 8, 2, 2048, 2048, 128, True, w, 128) for w in (0, 700)]
+             + [(1, 8, 2, 1000, 1100, 128, True, 300, 4),
+                (1, 64, 8, 256, 256, 64, True, 0, 64),
+                (2, 4, 2, 200, 72, 128, True, 0, 8)])
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,blk", F32_CASES,
+                         ids=["x".join(map(str, c)) for c in F32_CASES])
+def test_flash_attention_f32_kernel_matches_split_tf32(b, h, kv, sq, skv, d,
+                                                       causal, window, blk):
+    """The kernel meets 2e-6 against the f32 reference and against its own
+    split in plain torch, three TF32 passes."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = _check_attention(b, h, kv, sq, skv, d, causal, window, blk,
+                           torch.float32)
+    q, k, v = _attn(b, h, kv, sq, skv, d, torch.float32, seed=sq + skv + d)
+    torch.testing.assert_close(
+        got, mha_split_tf32(q, k, v, causal=causal, window=window),
+        atol=2e-6, rtol=2e-6)
+
+
+def test_flash_attention_f32_kernel_is_run_to_run_exact():
+    """No atomics and a fixed order of sums: two calls agree bit for
+    bit."""
+    _need_cuda()
+    q, k, v = _attn(1, 8, 2, 512, 640, 128, torch.float32, seed=7)
+    a = cuda_flash_attention(q, k, v, window=200, block_kv=64)
+    b = cuda_flash_attention(q, k, v, window=200, block_kv=64)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_flash_attention_f32_inputs_at_the_16_byte_edge():
+    """The pre-pass reads k and v in 16-byte units and TMA reads q from a
+    16-byte aligned start: inputs that start 16 bytes past a 32-byte
+    boundary are read right."""
+    _need_cuda()
+    q, k, v = _attn(1, 4, 2, 96, 136, 64, torch.float32, seed=3)
+
+    def shifted(t):
+        s = torch.empty(t.numel() + 4, device="cuda")[4:].view(t.shape)
+        s.copy_(t)
+        assert s.data_ptr() % 16 == 0 and s.data_ptr() % 32 != 0
+        return s
+
+    got = ops.flash_attention(shifted(q), shifted(k), shifted(v), window=40,
+                              block_q=8, block_kv=8)
+    torch.testing.assert_close(got, mha_reference(q, k, v, window=40),
+                               atol=2e-6, rtol=2e-6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -164,6 +164,153 @@ def test_split_p_meets_the_card_bf16_limit(b, h, kv, s, d):
     assert _over_card_limit(_p_in_bf16(q, k, v), want) > 0
 
 
+# The f32 kernel's precision contract: every product in three TF32 passes
+# (x = hi + lo, hi = tf32(x), lo = tf32(x - hi); hi.hi + (hi.lo + lo.hi))
+# meets the JAX tests' 2e-6 against the f32 reference, one TF32 pass does
+# not. (B, H, KV, S, D, window), f32 causal, GQA.
+SPLIT_TF32_SHAPES = [(1, 8, 2, 1024, 128, 0), (1, 4, 1, 2048, 128, 0),
+                     (1, 8, 2, 1024, 128, 256)]
+
+
+def _over_f32_limit(got, want, tol=2e-6):
+    g, w = _f32(got), _f32(want)
+    return int((np.abs(g - w) > tol + tol * np.abs(w)).sum())
+
+
+def _one_tf32_pass(q, k, v, *, causal, window):
+    """Attention with both products in one TF32 pass (hi.hi only): the
+    fault the three passes repair."""
+    t = ref.tf32_rn
+    s = torch.einsum("bkgqd,bksd->bkgqs", t(ref._grouped(q, k)), t(k))
+    s = ref._mask(s / np.sqrt(q.shape[-1]), causal=causal, window=window)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgqs,bksd->bkgqd", t(p), t(v))
+    return (o / p.sum(-1, keepdim=True)).reshape(q.shape)
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,window", SPLIT_TF32_SHAPES,
+                         ids=_ids(SPLIT_TF32_SHAPES))
+def test_split_tf32_meets_the_f32_limit(b, h, kv, s, d, window):
+    arrays = _attn_inputs(b, h, kv, s, s, d, seed=s + d + window)
+    q, k, v = _torch(arrays, "float32")
+    split = ref.mha_split_tf32(q, k, v, causal=True, window=window)
+    assert split.dtype == torch.float32 and split.shape == q.shape
+    want = jax_mha_reference(*_jax(arrays, "float32"), causal=True,
+                             window=window)
+    _close(split, want, 2e-6)
+    assert _over_f32_limit(_one_tf32_pass(q, k, v, causal=True,
+                                          window=window), want) > 0
+
+
+@pytest.mark.parametrize("window", [0, 96])
+def test_split_tf32_matches_the_pallas_kernel(window):
+    arrays = _attn_inputs(1, 4, 2, 256, 256, 128, seed=31 + window)
+    split = ref.mha_split_tf32(*_torch(arrays, "float32"), causal=True,
+                               window=window)
+    _close(split, pallas_flash_attention(*_jax(arrays, "float32"),
+                                         causal=True, window=window,
+                                         block_q=64, block_kv=64,
+                                         interpret=True), 2e-6)
+
+
+def _trunc_f32(x):
+    """f64 to f32, rounded toward zero."""
+    r = x.to(torch.float32)
+    return torch.where(r.double().abs() > x.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _tensor_core_attention(q, k, v, *, window, per_tile, tile=64):
+    """The f32 kernel's tiles (64 keys, causal, Sq = Skv a multiple of 64)
+    with the tensor cores' accumulation modelled: each k8 instruction adds
+    its 8 products, summed exactly, to the f32 accumulator and rounds the
+    result toward zero. S starts from zero on each tile, the small passes
+    first; P.V either starts from zero on each tile and joins O by one
+    rounded multiply-add (``per_tile``, as the kernel does) or runs on in
+    O's registers across the whole row."""
+    qh, ql = (x.double() for x in ref._split_tf32(ref._grouped(q, k)))
+    kh, kl = (x.double() for x in ref._split_tf32(k))
+    vh, vl = (x.double() for x in ref._split_tf32(v))
+    s_len, d = k.shape[2], k.shape[3]
+    scale = 1.0 / torch.tensor(np.sqrt(d), dtype=torch.float32)
+    m = torch.full(qh.shape[:-1] + (1,), ref.MASK_VALUE)
+    l = torch.zeros_like(m)
+    o = torch.zeros(qh.shape, dtype=torch.float32)
+
+    def mma(acc, eq, pairs):
+        for a, b in pairs:
+            x = torch.einsum(eq, a, b)
+            acc = _trunc_f32(x if acc is None else acc.double() + x)
+        return acc
+
+    for k0 in range(0, s_len, tile):
+        keys = slice(k0, k0 + tile)
+        cols = [slice(c, c + 8) for c in range(0, d, 8)]
+        s = mma(None, "bkgqd,bksd->bkgqs",
+                [p for c in cols for p in ((qh[..., c], kl[:, :, keys, c]),
+                                           (ql[..., c], kh[:, :, keys, c]))]
+                + [(qh[..., c], kh[:, :, keys, c]) for c in cols])
+        full = torch.full(s.shape[:-1] + (s_len,), ref.MASK_VALUE)
+        full[..., keys] = s * scale
+        s = ref._mask(full, causal=True, window=window)[..., keys]
+        n = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - n) * np.float32(np.log2(np.e)))
+        p = torch.exp2((s - n) * np.float32(np.log2(np.e)))
+        l, m = l * alpha + p.sum(-1, keepdim=True), n
+        ph, pl = (x.double() for x in ref._split_tf32(p))
+        js = [slice(j, j + 8) for j in range(0, tile, 8)]
+        vk = [slice(k0 + j.start, k0 + j.stop) for j in js]
+        pairs = ([x for j, c in zip(js, vk)
+                  for x in ((pl[..., j], vh[:, :, c]),
+                            (ph[..., j], vl[:, :, c]))]
+                 + [(ph[..., j], vh[:, :, c]) for j, c in zip(js, vk)])
+        if per_tile:
+            pv = mma(None, "bkgqs,bksd->bkgqd", pairs)
+            o = (o.double() * alpha.double() + pv.double()).to(torch.float32)
+        else:
+            o = mma(o * alpha, "bkgqs,bksd->bkgqd", pairs)
+    return (o / l.clamp(min=1e-30)).reshape(q.shape)
+
+
+# (B, H, KV, S, D): causal rows of 1,024 and 2,048 keys, GQA
+TRUNCATION_SHAPES = [(1, 4, 2, 1024, 128), (1, 2, 1, 2048, 128)]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", TRUNCATION_SHAPES,
+                         ids=_ids(TRUNCATION_SHAPES))
+def test_per_tile_pv_keeps_the_tensor_cores_truncation_in_the_f32_limit(
+        b, h, kv, s, d):
+    """Why the f32 kernel starts each tile's P.V from zero: the tensor
+    cores round toward zero as they accumulate, and P.V accumulated across
+    a whole row (3 x 1,024 / 8 = 384 truncating instructions at S 1,024)
+    drifts over 2e-6, where 24 a tile and one rounded add into O stay
+    inside it. ``ref.mha_split_tf32`` rounds to nearest and cannot tell
+    the two apart."""
+    arrays = _attn_inputs(b, h, kv, s, s, d, seed=s + d)
+    q, k, v = _torch(arrays, "float32")
+    want = jax_mha_reference(*_jax(arrays, "float32"), causal=True)
+    tiled = _tensor_core_attention(q, k, v, window=0, per_tile=True)
+    _close(tiled, want, 2e-6)
+    whole = _tensor_core_attention(q, k, v, window=0, per_tile=False)
+    assert _over_f32_limit(whole, want) > 0
+
+
+def test_tf32_rn_rounds_to_nearest_ties_away():
+    """cvt.rna.tf32.f32 on the bit pattern: 10 mantissa bits kept, a tie
+    rounds away from zero, infinities stay; hi + lo recovers 21 bits."""
+    one = 2.0 ** -10                       # a TF32 step at 1.0
+    x = torch.tensor([1.0, 1 + one / 2, 1 + 1.5 * one, -(1 + one / 2),
+                      1 + one / 4, np.inf, -np.inf, 0.0], dtype=torch.float32)
+    want = [1.0, 1 + one, 1 + 2 * one, -(1 + one), 1.0, np.inf, -np.inf, 0.0]
+    assert ref.tf32_rn(x).tolist() == want
+    bits = ref.tf32_rn(torch.randn(1000)).view(torch.int32)
+    assert int((bits & 0x1FFF).abs().sum()) == 0
+    y = torch.from_numpy(np.random.default_rng(4).standard_normal(1000,
+                                                                  np.float32))
+    hi, lo = ref._split_tf32(y)
+    assert float(((hi + lo - y).abs() / y.abs()).max()) < 2.0 ** -21
+
+
 # ---------------------------------------------------------------- RWKV6
 def _rwkv_inputs(b, h, t, d, seed, scale=0.5):
     rng = np.random.default_rng(seed)
@@ -290,10 +437,12 @@ def test_ops_refuse_devices_without_kernel():
 
 
 def test_attention_routes_by_dtype_to_built_sources():
-    """bf16 goes to the wgmma kernel, f32 to the FMA kernel; each route
-    names a source that the build compiles."""
+    """bf16 goes to the wgmma kernel with P in bf16 halves, f32 to the
+    wgmma kernel in three TF32 passes; each route names a source that the
+    build compiles."""
     assert ATTN_ROUTES == {torch.bfloat16: "flash_attention_sm90",
-                           torch.float32: "flash_attention"}
+                           torch.float32: "flash_attention_f32_sm90"}
+    assert "flash_attention" not in build.KERNELS     # the FMA kernel is gone
     assert set(ATTN_ROUTES.values()) <= set(build.KERNELS)
     for counter in ("launches", "launches_sm90", "launches_f32"):
         assert isinstance(getattr(cuda_flash_attention, counter), int)
@@ -328,8 +477,8 @@ def test_build_target_covers_source_headers_and_flags(name, monkeypatch,
     assert all(n.startswith(f"lib{name}-") for n in names)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_sm90",
-                                  "rwkv6_scan"])
+@pytest.mark.parametrize("name", ["flash_attention_f32_sm90",
+                                  "flash_attention_sm90", "rwkv6_scan"])
 def test_failed_build_of_new_kernels_raises(name, monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "nvcc", lambda: "false")
