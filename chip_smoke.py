@@ -18,23 +18,44 @@ Phases, each of which raises on failure (exit code non-zero):
    ``LDL``/``STL`` (no spill of the register-blocked state), or the script
    stops.
 3. Kernel phase: ``quack_scan``'s CUDA result against its plain torch
-   version on the card, both ``compute_lost`` settings, at the main
+   version on the card, both ``compute_lost`` settings, at the dense main
    path's shape (19, 19, 65536), ragged widths and R = 33 with random
-   real stakes; mismatches must be 0. Device time per call at the main
-   path's shape (CUDA events around a CUDA-graph replay that rotates over
-   input sets totalling more than the 50 MB L2, so every call reads cold
-   data), the plain version's time the same way, and the bytes bound.
+   real stakes, and in the lane form with B = 2 lanes of distinct real
+   stakes and thresholds; mismatches must be 0. Device time per call at
+   the dense shape and at the windowed shape (1, 19, 19, 6016) (CUDA
+   events around a CUDA-graph replay that rotates over input sets
+   totalling more than the 50 MB L2, so every call reads cold data), the
+   plain version's time the same way, and the bytes bounds.
 4. Path phase: BFT f = 1, M = 1,024, a crashed sender and a Byzantine
-   receiver, run on CUDA and on an explicitly requested CPU; every output
-   must be bit-identical and the kernel must launch 2 x steps times.
+   receiver, run on CUDA and on an explicitly requested CPU, densely and
+   windowed (W = 256, 16-round chunks: it grows and migrates to dense),
+   and two windowed specs of ``tests/test_windowed.py``: a tiny window
+   that grows under a GC-stalling adversary, and one that migrates to
+   the dense layout. Every output, metric, GC frontier trajectory and
+   final width must be bit-identical, and the kernel must launch
+   2 x steps times, plus once per rotating chunk when windowed.
 5. Full-size phase: BFT f = 6 <-> f = 6 (n = 19, the paper's largest
    §6.1 network), M = 65,536, window 4, phi 32, failure-free and with
    ``crash_fraction(19, 19, 0.3, seed=2)``, through ``run_picsou``. Both
    runs must end fully delivered and fully quacked, with 2 x steps kernel
    launches each; failure-free exactly one cross copy per message and no
    resend, the crash run some resends.
+5w. Windowed at full width: the same link with ``window_slots="auto"``
+   (W = 6,016) and 32-round chunks. A failure-free stream of M = 1,048,576
+   messages over ceil(M / 76) + 60 rounds must end all delivered and
+   quacked with one cross copy per message, no resend and the GC frontier
+   at M; its planning time, wall time, rounds/s, messages/s and peak
+   device memory are logged. The crash configuration of phase 5, windowed,
+   must give every output and metric of phase 5's dense crash run bit for
+   bit; its growth events and frontier trajectory are logged. Each run
+   must launch the kernel 2 x steps times plus once per rotating chunk.
 6. Where a full-size round's time goes: torch.profiler over 60 rounds of
-   the crash configuration (kernel time per round, device busy share).
+   the crash configuration, dense and windowed (kernels and kernel time
+   per round, the host's busiest calls, device busy share against the
+   same run unprofiled and against the engine's full run), the windowed
+   crash configuration over two chunks right after its dense migration,
+   and the host cost of a windowed chunk boundary (the same 384 rounds at
+   8, 16 and 32 rounds a chunk).
 7. Kernel-API phase (run right after phase 3, so that a fault in a
    kernel stops the script before the long runs): ``kernels.ops.
    flash_attention`` and ``kernels.ops.rwkv6_chunked`` at full model
@@ -80,6 +101,7 @@ result when there is no CUDA card or when the package is not beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -107,6 +129,13 @@ SHAPE = (19, 19, 65536)          # (n_s, n_r, M) of the full-size phase
 # crash run is deterministic and completes at round 63,171
 STEPS_FREE = 900
 STEPS_CRASH = 64000
+# the windowed engine at full width: default_window_slots(19, 19, 4, 32,
+# 32) = 6,016 columns, 32-round chunks; the long stream sends 76 messages
+# a round (19 senders x window 4) and ends 60 rounds after its last send
+CHUNK = 32
+WIN_SHAPE = (1, 19, 19, 6016)    # the windowed quorum launch (B, S, R, W)
+M_LONG = 1_048_576
+STEPS_LONG = -(-M_LONG // 76) + 60
 # each kernel of the JSON line: its source, and the TPU kernel it replaces
 CSRC = "src/repro_torch/kernels/csrc"
 KERNEL_FILES = {
@@ -207,6 +236,18 @@ def quack_inputs(s, r, w, gen, real_stakes, dev):
     return claims, comps, stakes, qthr, dthr
 
 
+def lane_inputs(b, s, r, w, gen, dev):
+    """The lane form: B lanes, each with its own real stakes and its own
+    thresholds (shares of its stake total spread over 0.45-0.65)."""
+    claims = torch.rand((b, s, r, w), generator=gen, device=dev) < 0.7
+    comps = torch.rand((b, s, r, w), generator=gen, device=dev) < 0.3
+    claims[:, :, : r // 2 + 1, : w // 3] = True
+    stakes = torch.rand((b, r), generator=gen, device=dev) + 0.5
+    share = torch.linspace(0.45, 0.65, b, device=dev)
+    return (claims, comps, stakes, stakes.sum(1) * share,
+            stakes.sum(1) * (share - 0.25))
+
+
 def compare(kernel_out, plain_out):
     """(mismatching entries, max |difference|) over all outputs."""
     bad, worst = 0, 0
@@ -255,12 +296,14 @@ def graph_ms(fn, sets, calls_per_graph=16, replays=5, windows=5):
     return sorted(times)
 
 
-def bound_ms(s, r, w, compute_lost: bool):
-    """Least time for the work: each input byte read once, each output
-    byte written once, vs the f32 multiply-adds over the bitmaps."""
+def bound_ms(s, r, w, compute_lost: bool, b: int = 1):
+    """Least time for the work of ``b`` lanes: each input byte read once,
+    each output byte written once, vs the f32 multiply-adds over the
+    bitmaps."""
     maps = 2 if compute_lost else 1
-    nbytes = maps * s * r * w + 4 * r + 4 * maps + maps * s * w + 4 * s
-    flops = maps * 2 * s * r * w
+    nbytes = b * (maps * s * r * w + 4 * r + 4 * maps + maps * s * w
+                  + 4 * s)
+    flops = b * maps * 2 * s * r * w
     t_bytes, t_ops = nbytes / HBM_BPS, flops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
@@ -287,9 +330,18 @@ def kernel_phase(dev):
                 f"(tolerance 0: bool/int32 outputs, same f32 sum order)")
             bad += b
             worst = max(worst, wd)
-        # four input sets of 47.3 MB rotate, so no call finds its inputs
-        # in the 50 MB L2
-        sets = [quack_inputs(*SHAPE, gen, False, dev) for _ in range(4)]
+        for shape in ((2,) + WIN_SHAPE[1:], (2, 5, 33, 4099)):
+            a = lane_inputs(*shape, gen, dev)
+            got = ops.quack_scan(*a, compute_lost=compute_lost)
+            want = quack_reference(*a, compute_lost=compute_lost)
+            torch.cuda.synchronize()
+            b, wd = compare(got, want)
+            log(f"[kernel] quack_scan compute_lost={compute_lost} lane form "
+                f"(B,S,R,W)={shape}, per-lane real stakes and thresholds "
+                f"{[round(float(x), 4) for x in a[3]]}: {b} mismatches "
+                f"(tolerance 0)")
+            bad += b
+            worst = max(worst, wd)
 
         def kern(*a):
             return ops.quack_scan(*a, compute_lost=compute_lost)
@@ -297,23 +349,40 @@ def kernel_phase(dev):
         def plain(*a):
             return quack_reference(*a, compute_lost=compute_lost)
 
-        k_times = graph_ms(kern, sets)
-        p_times = graph_ms(plain, sets)
-        ms, plain_ms = k_times[len(k_times) // 2], p_times[len(p_times) // 2]
-        bms, by, nbytes = bound_ms(*SHAPE, compute_lost)
-        log(f"[kernel] quack_scan compute_lost={compute_lost} at {SHAPE}: "
-            f"{ms * 1e3:.2f} us/call median of {len(k_times)} windows "
-            f"(min {k_times[0] * 1e3:.2f}, max {k_times[-1] * 1e3:.2f}); "
-            f"plain torch {plain_ms * 1e3:.2f} us (min "
-            f"{p_times[0] * 1e3:.2f}, max {p_times[-1] * 1e3:.2f}); bound "
-            f"{bms * 1e3:.2f} us by {by} ({nbytes / 1e6:.1f} MB), "
-            f"{bms / ms:.1%} of it; mismatches {bad}")
+        # four input sets of 47.3 MB rotate, so no call finds its inputs
+        # in the 50 MB L2; at the windowed shape, as many 4.3 MB sets as
+        # exceed it
+        timed = {}
+        for label, shape, sets in (
+                ("dense", (1,) + SHAPE,
+                 [quack_inputs(*SHAPE, gen, False, dev) for _ in range(4)]),
+                ("windowed", WIN_SHAPE,
+                 input_sets(lane_inputs(*WIN_SHAPE, gen, dev),
+                            lambda: lane_inputs(*WIN_SHAPE, gen, dev)))):
+            k_times = graph_ms(kern, sets)
+            p_times = graph_ms(plain, sets)
+            del sets
+            bms, by, nbytes = bound_ms(*shape[1:], compute_lost, b=shape[0])
+            ms, plain_ms = median(k_times), median(p_times)
+            log(f"[kernel] quack_scan compute_lost={compute_lost} at {shape} "
+                f"({label}): {ms * 1e3:.2f} us/call median of "
+                f"{len(k_times)} windows (min {k_times[0] * 1e3:.2f}, max "
+                f"{k_times[-1] * 1e3:.2f}); plain torch {plain_ms * 1e3:.2f}"
+                f" us (min {p_times[0] * 1e3:.2f}, max "
+                f"{p_times[-1] * 1e3:.2f}); bound {bms * 1e3:.2f} us by {by} "
+                f"({nbytes / 1e6:.1f} MB), {bms / ms:.1%} of it; "
+                f"mismatches {bad}")
+            timed[label] = (ms, plain_ms, bms, by)
         if bad:
             raise AssertionError(f"quack_scan disagrees with its plain "
                                  f"version in {bad} entries")
+        ms, plain_ms, bms, by = timed["dense"]
+        w_ms, w_plain, w_bms, _ = timed["windowed"]
         result[compute_lost] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                     bound_by=by, mismatches=bad,
-                                    max_abs_err=worst)
+                                    max_abs_err=worst, windowed_ms=w_ms,
+                                    windowed_plain_ms=w_plain,
+                                    windowed_bound_ms=w_bms)
     return result
 
 
@@ -775,7 +844,7 @@ def api_phase(dev):
     return entries
 
 
-# --------------------------------------------------------- phases 4, 5
+# ------------------------------------------------------ phases 4 to 6
 def _launches():
     from repro_torch.kernels.quack_scan import quack_scan
     return quack_scan.launches, quack_scan.launches_no_lost
@@ -787,128 +856,374 @@ def _reset_launches():
     quack_scan.launches_no_lost = 0
 
 
-def _check_launches(steps: int, what: str):
+def _check_launches(spec, what: str):
+    """The launch contract: two launches a round (one without the loss
+    quorum), and a windowed run one more without it per rotating chunk,
+    its GC frontier (every chunk but the last rotates)."""
     total, no_lost = _launches()
+    steps = spec.steps
+    chunks = -(-steps // spec.chunk_steps) if spec.window_slots else 0
+    rotating = max(chunks - 1, 0)
     log(f"[{what}] quack_scan launches: {total} "
-        f"({total - no_lost} with the loss quorum, {no_lost} without)")
-    if total != 2 * steps or no_lost != steps:
-        raise AssertionError(f"{what}: {total} launches ({no_lost} without "
-                             f"the loss quorum) for {steps} rounds; "
-                             f"expected {2 * steps} ({steps})")
+        f"({total - no_lost} with the loss quorum, {no_lost} without; "
+        f"{steps} rounds, {rotating} rotating chunks)")
+    if total != 2 * steps + rotating or no_lost != steps + rotating:
+        raise AssertionError(
+            f"{what}: {total} launches ({no_lost} without the loss quorum) "
+            f"for {steps} rounds and {rotating} rotating chunks; expected "
+            f"{2 * steps + rotating} ({steps + rotating})")
+
+
+def growth(res):
+    """A result's growth events as (round, old W, new W, to dense)."""
+    return [(e.step, e.old_w, e.new_w, e.dense_migration)
+            for e in res.window_growth_events]
+
+
+OUTPUT_FIELDS = ("quack_time", "deliver_time", "retry", "recv_has",
+                 "send_step", "delivery_latency")
+
+
+def _assert_same(a, b, what: str, window: bool = True):
+    """Every output and metric of two results bit for bit, dtypes
+    included; with ``window`` also the GC frontier trajectory, the final
+    width and the growth events."""
+    fields = OUTPUT_FIELDS + (("gc_frontiers",) if window else ())
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: the runs differ in {f}")
+    for f in a.metrics._fields:
+        x, y = getattr(a.metrics, f), getattr(b.metrics, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: the runs differ in metric {f}")
+    if window and (a.final_window_slots != b.final_window_slots
+                   or a.window_growth_events != b.window_growth_events):
+        raise AssertionError(f"{what}: the runs differ in their window")
+    return len(fields) + len(a.metrics._fields)
 
 
 def path_phase():
     from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
                                   run_picsou)
     cfg = RSMConfig.bft(1)
-    sim = SimConfig(n_msgs=1024, steps=200)
     fails = FailureScenario(crash_s=(2, -1, -1, -1),
                             byz_recv_drop=(False, False, True, False))
+    stall = dict(byz_bcast_partial=(True, False, False, False),
+                 bcast_limit=2)
+    runs = [
+        ("dense", SimConfig(n_msgs=1024, steps=200), fails),
+        ("windowed", SimConfig(n_msgs=1024, steps=200, window_slots=256,
+                               chunk_steps=16), fails),
+        ("windowed growth (gc_stall_adversary)",
+         SimConfig(n_msgs=128, steps=128 // 4 + 80, window=1, phi=6,
+                   window_slots=16, chunk_steps=8),
+         FailureScenario(**stall)),
+        ("windowed dense fallback",
+         SimConfig(n_msgs=64, steps=200, window=1, phi=6, window_slots=16,
+                   chunk_steps=8),
+         FailureScenario(**stall, crash_r=(-1, 8, -1, -1))),
+    ]
+    for name, sim, f in runs:
+        torch.cuda.synchronize()
+        _reset_launches()
+        gpu = run_picsou(cfg, cfg, sim, f)
+        _check_launches(gpu.spec, f"path {name}")
+        cpu = run_picsou(cfg, cfg, sim, f, device="cpu")
+        n = _assert_same(gpu.result, cpu.result, f"path {name}")
+        res = gpu.result
+        if name in ("dense", "windowed") and not (gpu.all_delivered
+                                                  and gpu.all_quacked):
+            raise AssertionError(f"path {name}: the run did not deliver "
+                                 f"and quack all")
+        if name != "dense" and not res.window_growth_events:
+            raise AssertionError(f"path {name}: the window never grew")
+        log(f"[path] {name}: M={sim.n_msgs} steps={sim.steps} W="
+            f"{gpu.spec.window_slots or sim.n_msgs}: cuda == cpu bit for "
+            f"bit ({n} fields); final W {res.final_window_slots}, growth "
+            f"{growth(res)}, "
+            f"frontier trajectory of {len(res.gc_frontiers)} ending at "
+            f"{int(res.gc_frontiers[-1])}; resends/msg "
+            f"{gpu.resends_per_msg:.4f}, completion round "
+            f"{res.completion_step()}")
+
+
+def _full_run(name: str, sim, fails, plan_s: float = 0.0):
+    """One full-size run through ``run_picsou`` with the launch counts at
+    0 and the peak memory reset; logs its numbers and checks that it
+    delivered and quacked every message."""
+    from repro_torch.core import RSMConfig, run_picsou
+    cfg = RSMConfig.bft(6)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # allocated before the run
     _reset_launches()
-    gpu = run_picsou(cfg, cfg, sim, fails)
-    _check_launches(sim.steps, "path")
-    cpu = run_picsou(cfg, cfg, sim, fails, device="cpu")
-    fields = ["quack_time", "deliver_time", "retry", "recv_has",
-              "send_step", "delivery_latency", "gc_frontiers"]
-    for f in fields:
-        a, b = getattr(gpu.result, f), getattr(cpu.result, f)
-        if a.dtype != b.dtype or not np.array_equal(a, b):
-            raise AssertionError(f"path: cuda and cpu runs differ in {f}")
-    for f in gpu.result.metrics._fields:
-        a, b = getattr(gpu.result.metrics, f), getattr(cpu.result.metrics, f)
-        if a.dtype != b.dtype or not np.array_equal(a, b):
-            raise AssertionError(f"path: cuda and cpu runs differ in "
-                                 f"metric {f}")
-    if not (gpu.all_delivered and gpu.all_quacked):
-        raise AssertionError("path: the run did not deliver and quack all")
-    log(f"[path] BFT f=1 M=1024 steps={sim.steps}: cuda == cpu bit for bit "
-        f"({len(fields)} outputs + {len(gpu.result.metrics)} metrics); "
-        f"resends/msg {gpu.resends_per_msg:.4f}, "
-        f"completion round {gpu.result.completion_step()}")
+    t0 = time.perf_counter()
+    run = run_picsou(cfg, cfg, sim, fails)
+    wall = time.perf_counter() - t0 - plan_s   # ends in a device->host copy
+    peak = torch.cuda.max_memory_allocated() - held
+    _check_launches(run.spec, name)
+    res = run.result
+    m, steps = sim.n_msgs, sim.steps
+    log(f"[{name}] BFT f=6 <-> f=6, M={m}, steps={steps}, W="
+        f"{run.spec.window_slots or m}: {wall:.3f} s wall"
+        + (f" after {plan_s:.3f} s of planning" if plan_s else "")
+        + f", {steps / wall:.1f} rounds/s, {m / wall:.1f} msgs/s; "
+        f"completion round {res.completion_step()}, delivery round "
+        f"{res.delivery_step()}, cross copies/msg "
+        f"{run.cross_copies_per_msg}, resends {res.total_resends()}, "
+        f"peak device memory of the run {peak / 2 ** 20:.1f} MiB (above "
+        f"{held / 2 ** 20:.1f} MiB allocated before it)")
+    if not (run.all_delivered and run.all_quacked):
+        raise AssertionError(f"{name}: not all delivered and quacked "
+                             f"after {steps} rounds")
+    if res.metrics.delivered.shape != (steps,) or \
+            int(res.metrics.delivered[-1]) != m:
+        raise AssertionError(f"{name}: delivered metric wrong")
+    if fails.crash_s is None:
+        if run.cross_copies_per_msg != 1.0 or res.total_resends():
+            raise AssertionError(f"{name}: expected one cross copy per "
+                                 f"message, no resends")
+    elif res.total_resends() <= 0:
+        raise AssertionError(f"{name}: expected resends")
+    return run, wall
 
 
 def full_phase(steps_free: int, steps_crash: int):
-    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
-                                  run_picsou)
-    cfg = RSMConfig.bft(6)
+    from repro_torch.core import FailureScenario, SimConfig
     m = SHAPE[2]
-    runs = [("failure-free", FailureScenario.none(), steps_free),
-            ("crash 0.3", FailureScenario.crash_fraction(19, 19, 0.3,
-                                                         seed=2),
-             steps_crash)]
+    crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
     launches = [0, 0]
-    for name, fails, steps in runs:
+    out = {}
+    for name, fails, steps in (("failure-free", FailureScenario.none(),
+                                steps_free),
+                               ("crash 0.3", crash, steps_crash)):
         sim = SimConfig(n_msgs=m, steps=steps, window=4, phi=32)
-        torch.cuda.synchronize()
-        _reset_launches()
-        t0 = time.perf_counter()
-        run = run_picsou(cfg, cfg, sim, fails)
-        wall = time.perf_counter() - t0      # ends in a device->host copy
-        _check_launches(steps, f"full {name}")
+        run, wall = _full_run(f"full {name}", sim, fails)
         total, no_lost = _launches()
         launches[0] += total - no_lost
         launches[1] += no_lost
-        res = run.result
-        log(f"[full {name}] BFT f=6 <-> f=6, M={m}, steps={steps}: "
-            f"{wall:.3f} s wall, {steps / wall:.1f} rounds/s, "
-            f"{m / wall:.1f} msgs/s; completion round "
-            f"{res.completion_step()}, delivery round "
-            f"{res.delivery_step()}, cross copies/msg "
-            f"{run.cross_copies_per_msg}, resends {res.total_resends()}, "
-            f"peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        if not (run.all_delivered and run.all_quacked):
-            raise AssertionError(f"full {name}: not all delivered and "
-                                 f"quacked after {steps} rounds")
-        if res.metrics.delivered.shape != (steps,) or \
-                int(res.metrics.delivered[-1]) != m:
-            raise AssertionError(f"full {name}: delivered metric wrong")
-        if fails.crash_s is None:
-            if run.cross_copies_per_msg != 1.0 or res.total_resends():
-                raise AssertionError("full failure-free: expected one "
-                                     "cross copy per message, no resends")
-        elif res.total_resends() <= 0:
-            raise AssertionError("full crash run: expected resends")
-        per_round_ms = wall / steps * 1e3
-    return launches, per_round_ms
+        out[name] = (run.result, wall / steps * 1e3)
+    return launches, out
 
 
-def profile_rounds(rounds: int, per_round_ms: float) -> None:
+def windowed_phase(dense_crash, steps_crash: int):
+    """Phase 5w: the windowed engine at full width. Returns the launch
+    counts and the unprofiled ms per round of the long stream and of the
+    crash run."""
+    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
+                                  build_spec)
+    cfg = RSMConfig.bft(6)
+    launches = [0, 0]
+
+    sim = SimConfig(n_msgs=M_LONG, steps=STEPS_LONG, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK)
+    t0 = time.perf_counter()
+    spec = build_spec(cfg, cfg, sim)
+    plan_s = time.perf_counter() - t0
+    ostep = np.asarray(spec.orig_step)
+    log(f"[windowed long] planning (build_spec) {plan_s:.3f} s: W="
+        f"{spec.window_slots}, last original send at round "
+        f"{int(ostep.max())}, scan_state_nbytes {spec.scan_state_nbytes()}"
+        f" (dense at this M: "
+        f"{dataclasses.replace(spec, window_slots=0).scan_state_nbytes()})")
+    run, long_wall = _full_run("windowed long", sim, FailureScenario.none(),
+                               plan_s)
+    res = run.result
+    if int(res.gc_frontiers[-1]) != M_LONG or res.window_growth_events:
+        raise AssertionError(f"windowed long: frontier ends at "
+                             f"{int(res.gc_frontiers[-1])}, growth "
+                             f"{res.window_growth_events}")
+    log(f"[windowed long] final W {res.final_window_slots}, frontier "
+        f"trajectory of {len(res.gc_frontiers)} ending at "
+        f"{int(res.gc_frontiers[-1])}")
+    total, no_lost = _launches()
+    launches[0] += total - no_lost
+    launches[1] += no_lost
+    del run, res
+
+    sim = SimConfig(n_msgs=SHAPE[2], steps=steps_crash, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK)
+    run, crash_wall = _full_run("windowed crash 0.3", sim,
+                                FailureScenario.crash_fraction(19, 19, 0.3,
+                                                               seed=2))
+    res = run.result
+    n = _assert_same(res, dense_crash, "windowed crash vs dense crash",
+                     window=False)
+    events = res.window_growth_events
+    log(f"[windowed crash 0.3] == phase 5's dense crash run bit for bit "
+        f"({n} fields); growth events {growth(res)}; migrated to dense: "
+        f"{any(e.dense_migration for e in events)}; "
+        f"final W {res.final_window_slots}; frontier trajectory of "
+        f"{len(res.gc_frontiers)} ending at {int(res.gc_frontiers[-1])}")
+    total, no_lost = _launches()
+    launches[0] += total - no_lost
+    launches[1] += no_lost
+    return (launches, long_wall / STEPS_LONG * 1e3,
+            crash_wall / steps_crash * 1e3)
+
+
+def profile_rounds(rounds: int, run_round_ms: float, label: str,
+                   **window) -> None:
     """Where a full-size round's time goes: torch.profiler over a short
-    run of the crash configuration. Device busy share = kernel time per
-    round over the unprofiled wall time per round of the crash run."""
+    run of the crash configuration, planned once beforehand. Device busy
+    share = kernel time per round over the unprofiled wall time per round
+    of the same short run (timed right before it), and over that of the
+    full run of the same engine (``run_round_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
-                                  run_picsou)
+                                  build_spec, run_simulation)
     cfg = RSMConfig.bft(6)
-    sim = SimConfig(n_msgs=SHAPE[2], steps=rounds, window=4, phi=32)
-    fails = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
-    run_picsou(cfg, cfg, sim, fails)                    # warm
+    sim = SimConfig(n_msgs=SHAPE[2], steps=rounds, window=4, phi=32,
+                    **window)
+    spec = build_spec(cfg, cfg, sim,
+                      FailureScenario.crash_fraction(19, 19, 0.3, seed=2))
+    run_simulation(spec)                                # warm
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_simulation(spec)
+    plain_ms = (time.perf_counter() - t0) / rounds * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_picsou(cfg, cfg, sim, fails)
+        run_simulation(spec)
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
     if busy_ms <= 0:
-        log("[profile] device time per round: not measured (the profiler "
-            "saw no kernels)")
+        log(f"[profile {label}] device time per round: not measured (the "
+            f"profiler saw no kernels)")
         return
-    log(f"[profile] {rounds} full-size crash-config rounds: "
-        f"{busy_ms:.4f} ms/round of kernels on the device, "
-        f"{sum(e.count for e in kernels) / rounds:.1f} kernels/round; "
-        f"{wall / rounds * 1e3:.4f} ms/round wall under the profiler, "
-        f"{per_round_ms:.4f} ms/round without it; device busy "
-        f"{busy_ms / per_round_ms:.1%} of the unprofiled round")
+    log(f"[profile {label}] {rounds} full-size crash-config rounds, W="
+        f"{spec.window_slots or spec.m}: {busy_ms:.4f} ms/round of kernels "
+        f"on the device, {sum(e.count for e in kernels) / rounds:.1f} "
+        f"kernels/round; {wall / rounds * 1e3:.4f} ms/round wall under the "
+        f"profiler, {plain_ms:.4f} ms/round without it (device busy "
+        f"{busy_ms / plain_ms:.1%}), {run_round_ms:.4f} ms/round over the "
+        f"engine's full run (device busy {busy_ms / run_round_ms:.1%})")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
-        log(f"[profile]   {e.self_device_time_total / rounds:9.2f} us/round"
-            f" {e.count / rounds:5.1f} launches/round  {e.key[:90]}")
+        log(f"[profile {label}]   {e.self_device_time_total / rounds:9.2f} "
+            f"us/round {e.count / rounds:5.1f} launches/round  "
+            f"{e.key[:90]}")
+    host = sorted((e for e in events if e.device_type != DeviceType.CUDA),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    for e in host:
+        log(f"[profile {label}]   host {e.self_cpu_time_total / rounds:9.2f}"
+            f" us/round {e.count / rounds:6.1f} calls/round  {e.key[:70]}")
+
+
+def profile_after_migration(run_round_ms: float, chunks: int = 2) -> None:
+    """The windowed crash run past its dense migration, where it spends
+    almost all its rounds: ``chunks`` chunks right after the one that
+    migrated (rounds, rotation at W = M and drain), timed unprofiled and
+    then under torch.profiler. The window runs from the start of its first
+    chunk to the start of the next one after it, marked by wrapping the
+    engine's chunk function. Device busy share = kernel time per round
+    over the unprofiled window's wall per round, and over the full
+    windowed crash run's (``run_round_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
+                                  build_spec, run_simulation, simulator)
+    cfg = RSMConfig.bft(6)
+    crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
+
+    def plan(steps):
+        return build_spec(cfg, cfg, SimConfig(
+            n_msgs=SHAPE[2], steps=steps, window=4, phi=32,
+            window_slots="auto", chunk_steps=CHUNK), crash)
+
+    events = run_simulation(plan(1024)).window_growth_events
+    migrated = [e.step for e in events if e.dense_migration]
+    if not migrated:
+        raise AssertionError("profile: the crash run did not migrate")
+    first = migrated[0] // CHUNK + 1          # the chunk after migrating
+    spec = plan((first + chunks + 1) * CHUNK)
+    chunk = simulator._chunk
+    window = {}
+
+    def measure(prof):
+        calls = [0]
+
+        def marked(*args, **kwargs):
+            if calls[0] in (first, first + chunks):
+                torch.cuda.synchronize()
+                window[calls[0]] = time.perf_counter()
+                if prof is not None:
+                    (prof.start if calls[0] == first else prof.stop)()
+            calls[0] += 1
+            return chunk(*args, **kwargs)
+
+        simulator._chunk = marked
+        try:
+            run_simulation(spec)
+        finally:
+            simulator._chunk = chunk
+        return (window[first + chunks] - window[first]) / (chunks * CHUNK)
+
+    plain_ms = measure(None) * 1e3
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    wall_ms = measure(prof) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    rounds = chunks * CHUNK
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
+    if busy_ms <= 0:
+        log("[profile windowed after migration] device time per round: not "
+            "measured (the profiler saw no kernels)")
+        return
+    log(f"[profile windowed after migration] rounds {first * CHUNK}-"
+        f"{(first + chunks) * CHUNK - 1} (migrated at round {migrated[0]}; "
+        f"W={spec.m}, {chunks} chunks with rotation and drain): "
+        f"{busy_ms:.4f} ms/round of kernels on the device, "
+        f"{sum(e.count for e in kernels) / rounds:.1f} kernels/round; "
+        f"{wall_ms:.4f} ms/round wall under the profiler, {plain_ms:.4f} "
+        f"ms/round without it (device busy {busy_ms / plain_ms:.1%}), "
+        f"{run_round_ms:.4f} ms/round over the windowed crash run (device "
+        f"busy {busy_ms / run_round_ms:.1%})")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        log(f"[profile windowed after migration]   "
+            f"{e.self_device_time_total / rounds:9.2f} us/round "
+            f"{e.count / rounds:5.1f} launches/round  {e.key[:80]}")
+
+
+def chunk_cost(rounds: int = 384) -> None:
+    """The host cost of a chunk boundary (frontier, rotation, drain): the
+    failure-free link windowed at W = 6,016 over ``rounds`` rounds with 8,
+    16 and 32 rounds a chunk, each planned beforehand, warmed and timed
+    unprofiled; the slope of wall time over the number of chunks."""
+    from repro_torch.core import RSMConfig, SimConfig, build_spec
+    from repro_torch.core import run_simulation
+    cfg = RSMConfig.bft(6)
+    walls = {}
+    for c in (8, 16, 32):
+        spec = build_spec(cfg, cfg, SimConfig(
+            n_msgs=SHAPE[2], steps=rounds, window=4, phi=32,
+            window_slots=WIN_SHAPE[3], chunk_steps=c))
+        run_simulation(spec)                            # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_simulation(spec)
+        walls[c] = time.perf_counter() - t0
+        if res.window_growth_events:
+            raise AssertionError(f"chunk cost: the window grew at {c} "
+                                 f"rounds a chunk")
+    n = {c: -(-rounds // c) for c in walls}
+    per_chunk = (walls[8] - walls[32]) / (n[8] - n[32])
+    log(f"[profile chunks] {rounds} failure-free rounds at W="
+        f"{WIN_SHAPE[3]}: "
+        + ", ".join(f"{c}-round chunks {walls[c] * 1e3 / rounds:.4f} "
+                    f"ms/round" for c in walls)
+        + f"; a chunk boundary costs {per_chunk * 1e3:.3f} ms of host time "
+        f"(slope from {n[32]} to {n[8]} chunks), a round without it "
+        f"{(walls[32] - n[32] * per_chunk) * 1e3 / rounds:.4f} ms")
 
 
 def build_all() -> dict:
@@ -1023,14 +1338,30 @@ def main() -> int:
     t0 = time.perf_counter()
     api = api_phase(dev)
     log(f"[time] kernel-API phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     path_phase()
-    launches, per_round_ms = full_phase(STEPS_FREE, STEPS_CRASH)
-    profile_rounds(60, per_round_ms)
+    log(f"[time] path phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, full = full_phase(STEPS_FREE, STEPS_CRASH)
+    log(f"[time] full-size phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    w_launches, w_round_ms, w_crash_ms = windowed_phase(
+        full["crash 0.3"][0], STEPS_CRASH)
+    log(f"[time] windowed phase {time.perf_counter() - t0:.1f} s")
+    del full["failure-free"]
+    # the windowed profile's full-run comparator is the long stream, at
+    # W = 6,016 for its whole run (the crash run migrates to dense)
+    profile_rounds(60, full["crash 0.3"][1], "dense")
+    profile_rounds(60, w_round_ms, "windowed", window_slots="auto",
+                   chunk_steps=CHUNK)
+    profile_after_migration(w_crash_ms)
+    chunk_cost()
 
-    rows = [("quack_scan", dict(kern[True], launches=launches[0],
-                                library_ms=None)),
-            ("quack_scan_no_lost", dict(kern[False], launches=launches[1],
-                                        library_ms=None)),
+    # the main path's launches: the full-size runs, dense and windowed
+    rows = [("quack_scan", dict(kern[True], launches=launches[0]
+                                + w_launches[0], library_ms=None)),
+            ("quack_scan_no_lost", dict(kern[False], launches=launches[1]
+                                        + w_launches[1], library_ms=None)),
             ("flash_attention", api["flash_attention"]),
             ("flash_attention_f32", api["flash_attention_f32"]),
             ("rwkv6_chunked", api["rwkv6_chunked"])]
@@ -1042,7 +1373,9 @@ def main() -> int:
             launches=k["launches"], max_abs_err=k["max_abs_err"],
             mismatches=k["mismatches"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-            library_ms=k["library_ms"]))
+            library_ms=k["library_ms"],
+            **{key: k[key] for key in ("windowed_ms", "windowed_plain_ms",
+                                       "windowed_bound_ms") if key in k}))
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError("a kernel of the main path never launched")
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")

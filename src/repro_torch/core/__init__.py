@@ -9,9 +9,14 @@ Public API (the names of ``repro.core``):
     run = run_picsou(RSMConfig.bft(1), RSMConfig.bft(1))   # on CUDA
     run = run_picsou(RSMConfig.bft(1), RSMConfig.bft(1), device="cpu")
     assert run.all_delivered and run.cross_copies_per_msg < 1.01
+
+A ``SimConfig`` with ``window_slots`` (an int or ``"auto"``) runs the
+windowed engine: O(W) device state, GC rotation, adaptive growth.
 """
 
-from .gc import default_window_slots, resolve_window_slots
+from .gc import (ack_floor_from_reports, chunk_boundaries, collectable,
+                 default_window_slots, gc_frontier, gc_frontier_device,
+                 grow_window, resolve_window_slots, snap_to_boundary)
 from .protocols import (C3BRun, analytic_throughput, ata_loads, ost_loads,
                         picsou_loads, run_picsou)
 from .quack import (claim_bitmask, cumulative_ack, missing_below_horizon,
@@ -23,15 +28,18 @@ from .retransmit import (declared_lost, elect_retransmitter,
 from .scheduler import (dss_sequence, hamilton_apportion, lottery_sequence,
                         round_robin_sequence, sender_assignment,
                         skewed_rr_sequence)
-from .simulator import (FailArrays, SimResult, SimSpec, build_spec,
-                        run_simulation)
+from .simulator import (ChunkQueue, FailArrays, SimResult, SimSpec,
+                        WindowGrowthEvent, build_spec, run_simulation)
 from .types import (FailureScenario, NetworkModel, RSMConfig, SimConfig,
                     lcm_scale_factors)
 
 __all__ = [
     "RSMConfig", "NetworkModel", "SimConfig", "FailureScenario",
     "SimSpec", "SimResult", "FailArrays", "build_spec", "run_simulation",
-    "default_window_slots", "resolve_window_slots",
+    "ChunkQueue", "WindowGrowthEvent",
+    "default_window_slots", "resolve_window_slots", "gc_frontier",
+    "gc_frontier_device", "grow_window", "collectable",
+    "ack_floor_from_reports", "chunk_boundaries", "snap_to_boundary",
     "C3BRun", "run_picsou", "analytic_throughput",
     "picsou_loads", "ata_loads", "ost_loads",
     "cumulative_ack", "claim_bitmask", "missing_below_horizon",

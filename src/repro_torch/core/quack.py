@@ -12,8 +12,9 @@ Sliding-window (offset-aware) form: every function takes an optional
 ``base`` — the absolute sequence number of column 0 of the ``received``
 array. Everything below ``base`` counts as held, so the absolute
 cumulative ack is ``base +`` the in-window prefix. ``base == 0`` with a
-full-width array is the dense semantics. ``base`` may be a python int or
-a () int32 tensor; all offset arithmetic is int32.
+full-width array is the dense semantics. ``base`` may be a python int, a
+() int32 tensor, or one int32 base per lane: a (B,) tensor beside
+(B, n_r, W) bitmaps. All offset arithmetic is int32.
 """
 
 from __future__ import annotations
@@ -34,8 +35,17 @@ __all__ = [
 _I32 = torch.int32
 
 
+def _rows(base):
+    """``base`` broadcast against per-row values (..., n_r)."""
+    if isinstance(base, torch.Tensor) and base.dim():
+        return base[..., None]
+    return base
+
+
 def _arange(w: int, base, device) -> torch.Tensor:
-    return base + torch.arange(w, dtype=_I32, device=device)
+    """Absolute indices of the window columns, broadcast against
+    (..., n_r, W)."""
+    return _rows(_rows(base)) + torch.arange(w, dtype=_I32, device=device)
 
 
 def stake_quorum_bitmap(claims: torch.Tensor, complaints: torch.Tensor,
@@ -44,10 +54,13 @@ def stake_quorum_bitmap(claims: torch.Tensor, complaints: torch.Tensor,
     """Stake-weighted QUACK / loss quorums over a window (§4.1/§4.2).
 
     claims / complaints: (n_s, n_r, W) bool — receiver claim and
-    repeat-complaint bitmaps as known to each sender. Returns
+    repeat-complaint bitmaps as known to each sender — with stakes (n_r,)
+    and scalar thresholds, or the lane form: (B, n_s, n_r, W), stakes
+    (B, n_r), thresholds (B,). Returns
     ``(quacked (n_s, W) bool, lost (n_s, W) bool, prefix (n_s,) int32)``
-    where ``quacked`` is the u_r+1 stake quorum, ``lost`` the r_r+1
-    duplicate-complaint quorum on not-yet-quacked messages, and
+    (with the B axis in front in the lane form) where ``quacked`` is the
+    u_r+1 stake quorum, ``lost`` the r_r+1 duplicate-complaint quorum on
+    not-yet-quacked messages, and
     ``prefix`` the contiguous quacked prefix length (window-relative; the
     caller adds its window ``base``).
 
@@ -65,12 +78,12 @@ def stake_quorum_bitmap(claims: torch.Tensor, complaints: torch.Tensor,
 def cumulative_ack(received: torch.Tensor, base=0) -> torch.Tensor:
     """Highest contiguous prefix count per receiver.
 
-    received: (n_r, W) bool -> (n_r,) int32 *absolute* counts. ``base`` is
-    the absolute index of column 0 (window invariant: everything below it
-    counts as received).
+    received: (..., n_r, W) bool -> (..., n_r) int32 *absolute* counts.
+    ``base`` is the absolute index of column 0 (window invariant:
+    everything below it counts as received).
     """
     prefix = torch.cumprod(received.to(_I32), dim=-1).sum(dim=-1)
-    return (base + prefix).to(_I32)
+    return (_rows(base) + prefix).to(_I32)
 
 
 def missing_below_horizon(received: torch.Tensor, phi: int,
@@ -79,17 +92,18 @@ def missing_below_horizon(received: torch.Tensor, phi: int,
 
     A receiver only reports gaps below its highest received index (anything
     above could simply not have been sent yet), and at most ``phi`` of them
-    (§4.2 Parallel Cumulative Acknowledgments). Returns (n_r, W) bool for
-    the window columns; gaps can only exist at or above ``base``.
+    (§4.2 Parallel Cumulative Acknowledgments). Returns (..., n_r, W) bool
+    for the window columns; gaps can only exist at or above ``base``.
     """
     w = received.shape[-1]
     idx = _arange(w, base, received.device)
+    rows = _rows(base)
     # top[j] = 1 + highest received index (base if nothing in-window);
     # argmax returns the first maximum, as jnp.argmax does
     last = torch.argmax(torch.flip(received, dims=(-1,)).to(_I32), dim=-1)
-    top = torch.where(received.any(dim=-1), base + w - last.to(_I32),
-                      base).to(_I32)
-    missing = (~received) & (idx[None, :] < top[:, None])
+    top = torch.where(received.any(dim=-1), rows + w - last.to(_I32),
+                      rows).to(_I32)
+    missing = (~received) & (idx < top[..., None])
     # keep only the first `phi` missing entries per row
     rank = torch.cumsum(missing.to(_I32), dim=-1)
     return missing & (rank <= phi)
@@ -108,8 +122,9 @@ def claim_bitmask(received: torch.Tensor, phi: int, base=0, total=None):
     absolute indices [base, base + W) of a stream of ``total`` messages.
     """
     w = received.shape[-1]
+    rows = _rows(base)
     if total is None:
-        total = base + w
+        total = rows + w
     idx = _arange(w, base, received.device)
     cum = cumulative_ack(received, base)
     # horizon: everything strictly below the (phi+1)-th missing index is
@@ -117,12 +132,12 @@ def claim_bitmask(received: torch.Tensor, phi: int, base=0, total=None):
     rank_all = torch.cumsum((~received).to(_I32), dim=-1)
     over = rank_all > phi
     first_over = torch.argmax(over.to(_I32), dim=-1).to(_I32)
-    horizon = torch.where(over.any(dim=-1), base + first_over,
+    horizon = torch.where(over.any(dim=-1), rows + first_over,
                           total).to(_I32)
-    known = idx[None, :] < horizon[:, None]
+    known = idx < horizon[..., None]
     claim = received & known
     # everything below cum is received by definition of cum
-    below_cum = idx[None, :] < cum[:, None]
+    below_cum = idx < cum[..., None]
     return cum, claim | below_cum, known | below_cum
 
 
@@ -130,7 +145,9 @@ def weighted_quorum_prefix(ack_vals: torch.Tensor, stakes: torch.Tensor,
                            threshold) -> torch.Tensor:
     """Largest prefix p such that stake >= threshold has acked >= p (§5.1).
 
-    ack_vals: (..., n_r) int; stakes: (n_r,); returns (...,) int32.
+    ack_vals: (..., n_r) int; stakes: (n_r,) or broadcastable to
+    ``ack_vals``; threshold: a scalar or broadcastable to ``ack_vals``
+    (e.g. (B, 1, 1) beside (B, n_r, n_s)); returns (...,) int32.
     Sort acks descending (stably, as ``jnp.argsort``), accumulate stake,
     and take the largest ack value at which the running stake first
     reaches the threshold.

@@ -1,4 +1,4 @@
-"""Vectorized PICSOU simulator in torch — the dense engine.
+"""Vectorized PICSOU simulator in torch — dense and windowed engines.
 
 The simulator executes the *full* protocol of §4–§5 — round-robin / DSS
 send scheduling, receiver rotation, intra-RSM broadcast, cumulative +
@@ -8,15 +8,34 @@ highest-quacked metadata defence, stake weighting and LCM-scaled
 retransmission rotation — as tensor state transitions, one step per
 synchronous round (one cross-RSM RTT).
 
-This module holds the dense engine: per-message state covers the whole
-stream (window ``[0, M)``, no rotation) and a Python loop runs
-``spec.steps`` rounds on one device. The stake-weighted QUACK and loss
-quorums of every round go through ``kernels.ops.quack_scan`` — the
-hand-written CUDA kernel on the card. The round loop never syncs with
-the host: round metrics stay on the device, and the whole result comes
-back in one device→host copy at the end. The windowed engine (chunks,
-GC rotation, superchunks), batched sweeps and the metrics fabric are not
-ported yet (ROADMAP queue 1).
+Every state tensor carries a leading **lane** axis B: one lane per
+simulated link, each with its own failure masks, stakes and window base
+(``FailArrays``, ``SimState.base``). The round's stake-weighted QUACK and
+loss quorums go through ``kernels.ops.quack_scan`` in its lane form — the
+hand-written CUDA kernel on the card. The round number ``t`` and the
+bases are device tensors, so nothing in a round or a chunk waits for the
+host.
+
+Two engines run the same step:
+
+- **dense** (``window_slots == 0``): one lane, the window is the whole
+  stream ``[0, M)`` and never rotates; the loop never syncs with the
+  host, and the result comes back in one device→host copy at the end.
+- **windowed** (``window_slots > 0``): per-message state lives in a
+  sliding window of W columns covering absolute sequence numbers
+  ``[base, base + W)``. The run is split into chunks of
+  ``spec.chunk_steps`` rounds; at the end of each chunk the GC frontier
+  (``gc.gc_frontier_device`` — the prefix both sides may forget, §4.3) is
+  computed on the device and the ring buffers rotate past it
+  (``_rotate_device``). The retired columns' outputs leave the device in a
+  bounded O(W) ``ChunkQueue``, drained by the host once per chunk in one
+  copy together with the chunk's round metrics. Failure-free, device
+  state is O(W), independent of M. A window too narrow for the in-flight
+  set grows 2x (``adaptive_window``), or the state migrates into the
+  dense layout when the width would reach M; ``adaptive_window=False``
+  raises ``ValueError`` instead. This engine runs one chunk per dispatch
+  (superchunk K = 1) whatever ``spec.superchunk`` says: the reference
+  gives identical outputs for every K.
 
 Semantics of a round ``t`` (matching Figure 3/4/5/6 of the paper):
   1. intra-RSM broadcasts queued at t-1 land;
@@ -29,41 +48,41 @@ Semantics of a round ``t`` (matching Figure 3/4/5/6 of the paper):
      the ack into their knowledge; QUACK / GC state advances.
 
 Integer and boolean contractions that the JAX package writes as einsums
-run here as float32 matrix products over 0/1 operands (exact: every count
-is below 2^24, and 0/1 is exact in TF32 too) or as boolean ``any``
-reductions. Every state tensor is int32 or bool, as in the JAX package.
+run here as batched float32 matrix products over 0/1 operands (exact:
+every count is below 2^24, and 0/1 is exact in TF32 too) or as boolean
+``any`` reductions. Every state tensor is int32 or bool, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import scheduler as sched
-from .gc import resolve_window_slots
+from .gc import gc_frontier_device, grow_window, resolve_window_slots
 from .quack import (claim_bitmask, missing_below_horizon,
                     stake_quorum_bitmap, weighted_quorum_prefix)
 from .snapshot import WINDOW_FILLS as _WINDOW_FILLS
+from .snapshot import device_state, host_state, pad_window, to_host
 from .snapshot import window_shapes as _window_shapes
 from .types import (FailureScenario, RSMConfig, SimConfig,
                     lcm_scale_factors)
 
 __all__ = ["SimSpec", "SimResult", "SimState", "StepMetrics", "FailArrays",
+           "ChunkQueue", "WindowGrowthEvent",
            "build_spec", "run_simulation", "spec_failures",
            "spec_with_failures", "spec_with_quorum",
            "retire_safety_stakes_ok", "spec_to_arrays", "spec_from_arrays",
            "state_from_numpy"]
 
+_NEVER_STEP = 2 ** 30     # orig_step pad for window slots beyond the stream
 _BIG = 2 ** 30
 _I32 = torch.int32
 
-# ROADMAP queue 1 items that a dense-only engine cannot run yet
-_WINDOWED_TODO = ("the windowed engine is not ported yet (ROADMAP queue 1, "
-                  "item 1: windowed core with gc_frontier_device and "
-                  "_rotate_device); use window_slots=None")
 _METRICS_TODO = ("collect_metrics is not ported yet (ROADMAP queue 1, "
                  "item 4: obs/metrics device half)")
 
@@ -103,13 +122,13 @@ class SimSpec:
     window_slots: int = 0             # 0 => dense (full-M) state
     chunk_steps: int = 0              # rounds per chunk (windowed)
     adaptive_window: bool = True      # grow W / dense-fallback on overflow
-    superchunk: int = 8               # fused chunks per dispatch (windowed)
+    superchunk: int = 8               # carried; the port runs K = 1
     debug_checks: bool = False        # per-drain checks (windowed)
     use_pallas_quack: bool = False    # carried across; see SimConfig
     collect_metrics: bool = False     # metrics fabric (not ported yet)
 
     def scan_state_nbytes(self) -> int:
-        """Device bytes of the per-round state (the P1 footprint).
+        """Device bytes of one lane's per-round state (the P1 footprint).
 
         Computed from the shapes and dtypes that ``_init_state`` really
         builds (on the ``meta`` device, so nothing is allocated).
@@ -120,52 +139,54 @@ class SimSpec:
 
 
 class FailArrays(NamedTuple):
-    """Per-scenario inputs of a run, as device tensors.
+    """Per-lane inputs of a run, as device tensors with a leading lane
+    axis B.
 
     Mostly failure masks; ``commit_floor`` is the commit-gated dispatch
     boundary for chained topologies (message ``k`` may only be originated
     once ``k < commit_floor``); a standalone link is fully committed
     (``commit_floor == m``). Stakes and quorum thresholds ride here too,
-    as () / (n,) float32 tensors that the quorum kernel reads on the
-    device.
+    as float32 tensors that the quorum kernel reads on the device.
     """
 
-    crash_s: torch.Tensor           # (n_s,) int32, -1 = never
-    crash_r: torch.Tensor           # (n_r,) int32
-    byz_send_drop: torch.Tensor     # (n_s,) bool
-    byz_recv_drop: torch.Tensor     # (n_r,) bool
-    byz_ack_advance: torch.Tensor   # (n_r,) int32
-    byz_ack_low: torch.Tensor       # (n_r,) bool
-    byz_bcast_partial: torch.Tensor  # (n_r,) bool
-    bcast_limit: torch.Tensor       # () int32
-    commit_floor: torch.Tensor      # () int32 — dispatch gate (abs seqno)
-    byz_equiv_send: torch.Tensor    # (n_s,) bool — resends equivocate
-    byz_hq_advance: torch.Tensor    # (n_s,) int32 — §4.3 hq-piggyback lie
-    byz_ack_stale: torch.Tensor     # (n_r,) bool — replays previous ack
-    drop_pair: torch.Tensor         # (n_s, n_r) bool — selective drops
-    stakes_s: torch.Tensor          # (n_s,) float32
-    stakes_r: torch.Tensor          # (n_r,) float32
-    quack_thresh: torch.Tensor      # () float32 — u_r + 1 (stake units)
-    dup_thresh: torch.Tensor        # () float32 — r_r + 1
-    hq_thresh: torch.Tensor         # () float32 — r_s + 1
+    crash_s: torch.Tensor           # (B, n_s) int32, -1 = never
+    crash_r: torch.Tensor           # (B, n_r) int32
+    byz_send_drop: torch.Tensor     # (B, n_s) bool
+    byz_recv_drop: torch.Tensor     # (B, n_r) bool
+    byz_ack_advance: torch.Tensor   # (B, n_r) int32
+    byz_ack_low: torch.Tensor       # (B, n_r) bool
+    byz_bcast_partial: torch.Tensor  # (B, n_r) bool
+    bcast_limit: torch.Tensor       # (B,) int32
+    commit_floor: torch.Tensor      # (B,) int32 — dispatch gate (abs seqno)
+    byz_equiv_send: torch.Tensor    # (B, n_s) bool — resends equivocate
+    byz_hq_advance: torch.Tensor    # (B, n_s) int32 — §4.3 hq-piggyback lie
+    byz_ack_stale: torch.Tensor     # (B, n_r) bool — replays previous ack
+    drop_pair: torch.Tensor         # (B, n_s, n_r) bool — selective drops
+    stakes_s: torch.Tensor          # (B, n_s) float32
+    stakes_r: torch.Tensor          # (B, n_r) float32
+    quack_thresh: torch.Tensor      # (B,) float32 — u_r + 1 (stake units)
+    dup_thresh: torch.Tensor        # (B,) float32 — r_r + 1
+    hq_thresh: torch.Tensor         # (B,) float32 — r_s + 1
 
 
 class SimState(NamedTuple):
-    recv_has: torch.Tensor      # (n_r, W) bool — receiver truly holds slot
-    bcast_q: torch.Tensor       # (n_r, W) bool — queued broadcast for t+1
-    bcast_done: torch.Tensor    # (n_r, W) bool
-    orig_sent: torch.Tensor     # (W,) bool — original dispatch attempted
-    known: torch.Tensor         # (n_s, n_r, W) bool — j's claims known to l
-    complaint: torch.Tensor     # (n_s, n_r, W) bool — j's last complaint
-    repeat_c: torch.Tensor      # (n_s, n_r, W) bool — complained twice to l
-    last_cum: torch.Tensor      # (n_s, n_r) int32 (absolute counts)
-    retry: torch.Tensor         # (n_s, W) int32
-    quack_time: torch.Tensor    # (n_s, W) int32, -1 = not yet
-    deliver_time: torch.Tensor  # (W,) int32, -1 = not yet
-    hq_reports: torch.Tensor    # (n_r, n_s) int32 (absolute seqnos)
-    ack_floor: torch.Tensor     # (n_r,) int32 (absolute counts)
-    base: torch.Tensor          # () int32 — absolute seqno of window col 0
-    retired_delivered: torch.Tensor  # () int32 — delivered among retired
+    """The carried state of B lanes at window width W."""
+
+    recv_has: torch.Tensor      # (B, n_r, W) bool — receiver holds slot
+    bcast_q: torch.Tensor       # (B, n_r, W) bool — queued broadcast for t+1
+    bcast_done: torch.Tensor    # (B, n_r, W) bool
+    orig_sent: torch.Tensor     # (B, W) bool — original dispatch attempted
+    known: torch.Tensor         # (B, n_s, n_r, W) bool — j's claims at l
+    complaint: torch.Tensor     # (B, n_s, n_r, W) bool — j's last complaint
+    repeat_c: torch.Tensor      # (B, n_s, n_r, W) bool — complained twice
+    last_cum: torch.Tensor      # (B, n_s, n_r) int32 (absolute counts)
+    retry: torch.Tensor         # (B, n_s, W) int32
+    quack_time: torch.Tensor    # (B, n_s, W) int32, -1 = not yet
+    deliver_time: torch.Tensor  # (B, W) int32, -1 = not yet
+    hq_reports: torch.Tensor    # (B, n_r, n_s) int32 (absolute seqnos)
+    ack_floor: torch.Tensor     # (B, n_r) int32 (absolute counts)
+    base: torch.Tensor          # (B,) int32 — absolute seqno of window col 0
+    retired_delivered: torch.Tensor  # (B,) int32 — delivered among retired
 
 
 class StepMetrics(NamedTuple):
@@ -175,6 +196,45 @@ class StepMetrics(NamedTuple):
     acks: np.ndarray           # ack messages this round
     delivered: np.ndarray      # cumulative messages delivered
     min_quack_prefix: np.ndarray  # min honest-sender quacked prefix
+
+
+class ChunkQueue(NamedTuple):
+    """Bounded device-side output queue, drained by the host once per chunk.
+
+    Holds the pre-rotation window outputs plus (base, count): columns
+    ``[0, count)`` are the slots this chunk's rotation retired, covering
+    absolute sequence numbers ``[base, base + count)``. O(W) regardless
+    of stream length — the only per-chunk device->host traffic besides
+    the round metrics.
+    """
+
+    quack_time: torch.Tensor    # (B, n_s, W) pre-rotation
+    deliver_time: torch.Tensor  # (B, W)
+    retry: torch.Tensor         # (B, n_s, W)
+    recv_has: torch.Tensor      # (B, n_r, W)
+    base: torch.Tensor          # (B,) int32 — window base before rotation
+    count: torch.Tensor         # (B,) int32 — slots retired by this rotation
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowGrowthEvent:
+    """One adaptive-window growth decision, attributed to its cause.
+
+    All lanes share one window width, so a single frontier-stalled lane
+    forces growth for every lane: ``scenario`` records *which* lane
+    overflowed and ``step`` the round whose dispatch would have outrun
+    the window. ``new_w == m`` with ``dense_migration`` set means the run
+    migrated into the dense layout rather than doubling again. ``fork``
+    is kept for the JAX package's what-if forks; it is None here.
+    """
+
+    step: int                # round whose dispatch overflowed the window
+    scenario: int            # lane that forced the growth
+    need: int                # highest in-flight seqno at that round
+    old_w: int
+    new_w: int
+    dense_migration: bool = False
+    fork: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -187,9 +247,10 @@ class SimResult:
     recv_has: np.ndarray                  # (n_r, M) bool
     # window base per chunk boundary; dense runs report the trivial [0]
     gc_frontiers: Optional[np.ndarray] = None
-    # window width the run ended with (== m for dense runs)
+    # window width the run ended with (== m for dense / dense-fallback)
     final_window_slots: Optional[int] = None
-    window_growth_events: Tuple = ()
+    # every growth / dense-migration decision the run took
+    window_growth_events: Tuple[WindowGrowthEvent, ...] = ()
     # (M,) round each message's original dispatch happened (-1 = never)
     send_step: Optional[np.ndarray] = None
     # (M,) per-message delivery latency (-1 = not delivered)
@@ -423,63 +484,70 @@ def spec_from_arrays(d: dict) -> SimSpec:
 
 
 def state_from_numpy(state_np, device) -> SimState:
-    """A ``SimState`` of numpy arrays (fields in ``SimState`` order, e.g.
-    the JAX package's state after ``jax.device_get``) as device tensors,
-    with dtypes kept (int32 / bool)."""
+    """A ``SimState`` of numpy arrays (fields in ``SimState`` order, each
+    with the lane axis in front) as device tensors, dtypes kept
+    (int32 / bool). A JAX package state enters as one lane with
+    ``[x[None] for x in state]``."""
     return SimState(*(torch.tensor(np.asarray(x), device=device)
                       for x in state_np))
 
 
 # ------------------------------------------------------------- the round
-def _fail_arrays(spec: SimSpec, device) -> FailArrays:
-    n_s, n_r = spec.n_s, spec.n_r
+def _fail_arrays(specs: Sequence[SimSpec], device) -> FailArrays:
+    """The specs' masks, stakes and thresholds, one lane per spec."""
 
     def tup(x, n, default):
         return [default] * n if x is None else x
 
-    def t(x, dtype):
-        return torch.tensor(x, dtype=dtype, device=device)
+    def lanes(get, dtype):
+        return torch.tensor(np.asarray([get(s) for s in specs]), dtype=dtype,
+                            device=device)
 
-    dp = (spec.drop_pair if spec.drop_pair is not None
-          else np.zeros((n_s, n_r), dtype=bool))
+    def drop(s):
+        dp = (s.drop_pair if s.drop_pair is not None
+              else np.zeros((s.n_s, s.n_r), dtype=bool))
+        return np.asarray(dp, dtype=bool).reshape(s.n_s, s.n_r)
+
     return FailArrays(
-        crash_s=t(spec.crash_s, _I32),
-        crash_r=t(spec.crash_r, _I32),
-        byz_send_drop=t(spec.byz_send_drop, torch.bool),
-        byz_recv_drop=t(spec.byz_recv_drop, torch.bool),
-        byz_ack_advance=t(spec.byz_ack_advance, _I32),
-        byz_ack_low=t(spec.byz_ack_low, torch.bool),
-        byz_bcast_partial=t(spec.byz_bcast_partial, torch.bool),
-        bcast_limit=t(max(spec.bcast_limit, 0), _I32),
-        commit_floor=t(spec.m, _I32),
-        byz_equiv_send=t(tup(spec.byz_equiv_send, n_s, False), torch.bool),
-        byz_hq_advance=t(tup(spec.byz_hq_advance, n_s, 0), _I32),
-        byz_ack_stale=t(tup(spec.byz_ack_stale, n_r, False), torch.bool),
-        drop_pair=t(np.asarray(dp, dtype=bool).reshape(n_s, n_r),
-                    torch.bool),
-        stakes_s=t(spec.stakes_s, torch.float32),
-        stakes_r=t(spec.stakes_r, torch.float32),
-        quack_thresh=t(spec.quack_thresh, torch.float32),
-        dup_thresh=t(spec.dup_thresh, torch.float32),
-        hq_thresh=t(spec.hq_thresh, torch.float32),
+        crash_s=lanes(lambda s: s.crash_s, _I32),
+        crash_r=lanes(lambda s: s.crash_r, _I32),
+        byz_send_drop=lanes(lambda s: s.byz_send_drop, torch.bool),
+        byz_recv_drop=lanes(lambda s: s.byz_recv_drop, torch.bool),
+        byz_ack_advance=lanes(lambda s: s.byz_ack_advance, _I32),
+        byz_ack_low=lanes(lambda s: s.byz_ack_low, torch.bool),
+        byz_bcast_partial=lanes(lambda s: s.byz_bcast_partial, torch.bool),
+        bcast_limit=lanes(lambda s: max(s.bcast_limit, 0), _I32),
+        commit_floor=lanes(lambda s: s.m, _I32),
+        byz_equiv_send=lanes(lambda s: tup(s.byz_equiv_send, s.n_s, False),
+                             torch.bool),
+        byz_hq_advance=lanes(lambda s: tup(s.byz_hq_advance, s.n_s, 0),
+                             _I32),
+        byz_ack_stale=lanes(lambda s: tup(s.byz_ack_stale, s.n_r, False),
+                            torch.bool),
+        drop_pair=lanes(drop, torch.bool),
+        stakes_s=lanes(lambda s: s.stakes_s, torch.float32),
+        stakes_r=lanes(lambda s: s.stakes_r, torch.float32),
+        quack_thresh=lanes(lambda s: s.quack_thresh, torch.float32),
+        dup_thresh=lanes(lambda s: s.dup_thresh, torch.float32),
+        hq_thresh=lanes(lambda s: s.hq_thresh, torch.float32),
     )
 
 
 def _protocol_step(spec: SimSpec, fail: FailArrays, sched_w, base, w: int):
-    """Per-round transition over ``w`` window columns starting at ``base``.
+    """Per-round transition of B lanes over ``w`` window columns.
 
-    ``base`` is a python int (dense: 0) or a () int32 tensor; all
-    sequence-number arithmetic is absolute. Returns ``step(state, t)``
-    with ``t`` a python int, giving ``(new_state, metrics)`` where
-    ``metrics`` is a (6,) int32 device tensor in ``StepMetrics`` order.
-    Nothing in a step waits for the device.
+    ``sched_w`` is the (orig_sender, orig_recv, orig_step) schedule of
+    each lane's window, (B, w) int32 each; ``base`` the (B,) int32 window
+    bases. All sequence-number arithmetic is absolute. Returns
+    ``step(state, t)`` with ``t`` a () int32 tensor, giving
+    ``(new_state, metrics)`` where ``metrics`` is a (B, 6) int32 tensor in
+    ``StepMetrics`` order. Nothing in a step waits for the device.
     """
     n_s, n_r, m = spec.n_s, spec.n_r, spec.m
     phi = spec.phi
     orig_sender, orig_recv, orig_step = sched_w
     dev = orig_sender.device
     sender_ix = orig_sender.long()
-    recv_ix = orig_recv.long()
 
     stakes_s = fail.stakes_s
     stakes_r = fail.stakes_r
@@ -487,7 +555,7 @@ def _protocol_step(spec: SimSpec, fail: FailArrays, sched_w, base, w: int):
     rr_seq = torch.tensor(spec.rr_seq, dtype=_I32, device=dev)
     ls, lr = len(spec.rs_seq), len(spec.rr_seq)
 
-    abs_idx = base + torch.arange(w, dtype=_I32, device=dev)
+    abs_idx = base[:, None] + torch.arange(w, dtype=_I32, device=dev)
     idx_r = torch.arange(n_r, dtype=_I32, device=dev)
     idx_s = torch.arange(n_s, dtype=_I32, device=dev)
     honest_r = (fail.crash_r < 0) & ~(fail.byz_recv_drop | fail.byz_ack_low
@@ -498,26 +566,31 @@ def _protocol_step(spec: SimSpec, fail: FailArrays, sched_w, base, w: int):
                                       | fail.byz_equiv_send
                                       | (fail.byz_hq_advance > 0))
 
-    # broadcast reach matrix (n_r, n_r): who hears j's intra-RSM broadcast.
-    partial_reach = idx_r[None, :] < fail.bcast_limit
-    reach = torch.where(fail.byz_bcast_partial[:, None], partial_reach, True)
+    # broadcast reach matrix (B, n_r, n_r): who hears j's intra-RSM
+    # broadcast
+    partial_reach = idx_r[None, None, :] < fail.bcast_limit[:, None, None]
+    reach = torch.where(fail.byz_bcast_partial[:, :, None], partial_reach,
+                        True)
     reach = reach & (idx_r[None, :] != idx_r[:, None])
-    reach_t = reach.T.to(torch.float32)                      # (i, j)
-    reach_count = reach.sum(dim=1).to(_I32)                  # (n_r,)
+    reach_t = reach.transpose(1, 2).to(torch.float32)        # (B, i, j)
+    reach_count = reach.sum(dim=2).to(_I32)                  # (B, n_r)
     # the original sends' fixed (sender, receiver) pairs
-    sender_of = orig_sender[None, :] == idx_s[:, None]       # (n_s, W)
-    recv_of = orig_recv[None, :] == idx_r[:, None]           # (n_r, W)
-    drop_o = fail.drop_pair[sender_ix, recv_ix]              # (W,)
+    sender_of = orig_sender[:, None, :] == idx_s[None, :, None]  # (B,n_s,W)
+    recv_of = orig_recv[:, None, :] == idx_r[None, :, None]      # (B,n_r,W)
+    drop_o = torch.gather(fail.drop_pair.reshape(-1, n_s * n_r), 1,
+                          sender_ix * n_r + orig_recv.long())    # (B, W)
+    send_drop_o = torch.gather(fail.byz_send_drop, 1, sender_ix)  # (B, W)
 
-    def step(state: SimState, t: int):
-        alive_s = (fail.crash_s < 0) | (t < fail.crash_s)
-        alive_r = (fail.crash_r < 0) | (t < fail.crash_r)
+    def step(state: SimState, t: torch.Tensor):
+        alive_s = (fail.crash_s < 0) | (t < fail.crash_s)       # (B, n_s)
+        alive_r = (fail.crash_r < 0) | (t < fail.crash_r)       # (B, n_r)
 
         # (1) broadcasts queued last round land now ------------------------
-        bcast_sent = state.bcast_q & alive_r[:, None]
+        bcast_sent = state.bcast_q & alive_r[:, :, None]
         # einsum("jk,ji->ik") over 0/1 operands as an exact f32 product
-        recv_from_bcast = (reach_t @ bcast_sent.to(torch.float32)) > 0
-        recv_has = state.recv_has | (recv_from_bcast & alive_r[:, None])
+        recv_from_bcast = torch.bmm(reach_t,
+                                    bcast_sent.to(torch.float32)) > 0
+        recv_has = state.recv_has | (recv_from_bcast & alive_r[:, :, None])
         bcast_done = state.bcast_done | bcast_sent
 
         # (2) retransmission declaration + election (knowledge of t-1) -----
@@ -526,107 +599,112 @@ def _protocol_step(spec: SimSpec, fail: FailArrays, sched_w, base, w: int):
             fail.dup_thresh, use_pallas=spec.use_pallas_quack)
         # losses can only be declared for messages whose original dispatch
         # already happened
-        declared = lost_prev & state.orig_sent[None, :]
+        declared = lost_prev & state.orig_sent[:, None, :]
         retry_new = state.retry + declared.to(_I32)
         # Fig. 6: the a-th retransmission of k is sent by the a-th successor
         # of the original sender: sender_new = (orig + #retransmit) mod n_s.
-        elected = (rs_seq[((abs_idx[None, :] + retry_new) % ls).long()]
-                   == idx_s[:, None])
-        resend = (declared & elected & alive_s[:, None]
-                  & ~fail.byz_send_drop[:, None])
+        elected = (rs_seq[((abs_idx[:, None, :] + retry_new) % ls).long()]
+                   == idx_s[None, :, None])
+        resend = (declared & elected & alive_s[:, :, None]
+                  & ~fail.byz_send_drop[:, :, None])
         # clear complaint trackers where a loss was declared (fresh cycle)
-        complaint = state.complaint & ~declared[:, None, :]
-        repeat_c = state.repeat_c & ~declared[:, None, :]
-        re_target = rr_seq[((orig_recv[None, :] + retry_new) % lr).long()]
+        complaint = state.complaint & ~declared[:, :, None, :]
+        repeat_c = state.repeat_c & ~declared[:, :, None, :]
+        re_target = rr_seq[((orig_recv[:, None, :] + retry_new) % lr)
+                           .long()]                            # (B, n_s, W)
         # an equivocating sender's resends are discarded by receivers;
         # a dropped pair kills the copy in the network
-        drop_re = torch.gather(fail.drop_pair, 1, re_target.long())
-        resend_land = resend & ~fail.byz_equiv_send[:, None] & ~drop_re
-        # hit[l, i, k]: sender l's resend of k lands at receiver i
-        hit = (resend_land[:, None, :]
-               & (re_target[:, None, :] == idx_r[None, :, None]))
+        drop_re = torch.gather(fail.drop_pair, 2, re_target.long())
+        resend_land = (resend & ~fail.byz_equiv_send[:, :, None]
+                       & ~drop_re)
+        # hit[b, l, i, k]: sender l's resend of k lands at receiver i
+        hit = (resend_land[:, :, None, :]
+               & (re_target[:, :, None, :] == idx_r[None, None, :, None]))
 
         # (3) original sends + landing --------------------------------------
-        due = ((orig_step <= t) & (abs_idx < fail.commit_floor)
+        due = ((orig_step <= t) & (abs_idx < fail.commit_floor[:, None])
                & ~state.orig_sent)
-        orig_ok = (due & alive_s[sender_ix]
-                   & ~fail.byz_send_drop[sender_ix])
+        orig_ok = due & torch.gather(alive_s, 1, sender_ix) & ~send_drop_o
         orig_sent = state.orig_sent | due
         orig_land = orig_ok & ~drop_o
-        s_orig = orig_land[None, :] & recv_of                  # (n_r, W)
-        s_re = hit.any(dim=0)                                  # (n_r, W)
+        s_orig = orig_land[:, None, :] & recv_of               # (B, n_r, W)
+        s_re = hit.any(dim=1)                                  # (B, n_r, W)
         wire = s_orig | s_re
-        land = wire & alive_r[:, None] & ~fail.byz_recv_drop[:, None]
+        land = (wire & alive_r[:, :, None]
+                & ~fail.byz_recv_drop[:, :, None])
         recv_has = recv_has | land
         bcast_q = land & ~bcast_done
-        deliver_now = (recv_has & honest_r[:, None]).any(dim=0)
+        deliver_now = (recv_has & honest_r[:, :, None]).any(dim=1)
         deliver_time = torch.where((state.deliver_time < 0) & deliver_now,
                                    t, state.deliver_time)
 
         # (3b) highest-quacked metadata rides on every landed data message
         # (constant-size piggyback, §4.3); absolute prefix = base + window
-        qp_prev = base + qprefix_prev
-        e_lk = sender_of & orig_land[None, :]                  # (n_s, W)
+        qp_prev = base[:, None] + qprefix_prev                 # (B, n_s)
+        e_lk = sender_of & orig_land[:, None, :]               # (B, n_s, W)
         # einsum("lk,ik->li") as an exact f32 product (counts <= W < 2^24)
-        sent_orig_to = (e_lk.to(torch.float32)
-                        @ s_orig.to(torch.float32).T) > 0     # (n_s, n_r)
-        sent_re_to = hit.any(dim=2)                            # (n_s, n_r)
-        heard = (sent_orig_to | sent_re_to).T                  # (n_r, n_s)
+        sent_orig_to = torch.bmm(
+            e_lk.to(torch.float32),
+            s_orig.to(torch.float32).transpose(1, 2)) > 0      # (B,n_s,n_r)
+        sent_re_to = hit.any(dim=3)                            # (B,n_s,n_r)
+        heard = (sent_orig_to | sent_re_to).transpose(1, 2)    # (B,n_r,n_s)
         # an hq-lying sender inflates its piggybacked prefix per receiver:
         # receiver i hears min(true + adv + i, m)
-        hq_lie = fail.byz_hq_advance                           # (n_s,)
+        hq_lie = fail.byz_hq_advance[:, None, :]               # (B, 1, n_s)
         hq_claim = torch.where(
-            hq_lie[None, :] > 0,
-            (qp_prev[None, :] + hq_lie[None, :] + idx_r[:, None])
+            hq_lie > 0,
+            (qp_prev[:, None, :] + hq_lie + idx_r[None, :, None])
             .clamp(max=m),
-            qp_prev[None, :])                                  # (n_r, n_s)
-        hq_new = torch.where(heard & alive_r[:, None], hq_claim, 0)
+            qp_prev[:, None, :])                               # (B,n_r,n_s)
+        hq_new = torch.where(heard & alive_r[:, :, None], hq_claim, 0)
         hq_reports = torch.maximum(state.hq_reports, hq_new.to(_I32))
 
         # (4) acknowledgements ---------------------------------------------
-        ack_floor = weighted_quorum_prefix(hq_reports, stakes_s,
-                                           fail.hq_thresh)
-        ack_floor = torch.maximum(state.ack_floor, ack_floor)
-        eff = recv_has | (abs_idx[None, :] < ack_floor[:, None])
+        ack_floor = weighted_quorum_prefix(hq_reports, stakes_s[:, None, :],
+                                           fail.hq_thresh[:, None, None])
+        ack_floor = torch.maximum(state.ack_floor, ack_floor)  # (B, n_r)
+        eff = recv_has | (abs_idx[:, None, :] < ack_floor[:, :, None])
         cum, claim, _known_mask = claim_bitmask(eff, phi, base, m)
         miss = missing_below_horizon(eff, phi, base)
         # Byzantine lies --------------------------------------------------
-        advance = fail.byz_ack_advance > 0
-        cum = torch.where(fail.byz_ack_low, 0, cum)
-        cum = torch.where(advance, (cum + fail.byz_ack_advance).clamp(max=m),
+        advance = fail.byz_ack_advance > 0                     # (B, n_r)
+        low = fail.byz_ack_low
+        cum = torch.where(low, 0, cum)
+        cum = torch.where(advance,
+                          (cum + fail.byz_ack_advance).clamp(max=m),
                           cum).to(_I32)
-        claim = claim & ~fail.byz_ack_low[:, None]
-        claim = torch.where(advance[:, None],
-                            abs_idx[None, :] < cum[:, None], claim)
-        miss = torch.where(fail.byz_ack_low[:, None],
-                           abs_idx[None, :] < phi, miss)
-        miss = miss & ~advance[:, None]
+        claim = claim & ~low[:, :, None]
+        claim = torch.where(advance[:, :, None],
+                            abs_idx[:, None, :] < cum[:, :, None], claim)
+        miss = torch.where(low[:, :, None], abs_idx[:, None, :] < phi, miss)
+        miss = miss & ~advance[:, :, None]
         # the ack rotation: receiver j acks sender (j + t) mod n_s
         tgt = (idx_r + t) % n_s                                # (n_r,)
-        upd = (tgt[None, :] == idx_s[:, None]) & alive_r[None, :]
+        upd = ((tgt[None, :] == idx_s[:, None])[None]
+               & alive_r[:, None, :])                          # (B,n_s,n_r)
         # a stale-acking receiver replays its previous ack to this round's
         # target verbatim (applied last, over the other lies)
-        stale = fail.byz_ack_stale                             # (n_r,)
-        prev_cum = (torch.where(upd, state.last_cum, 0).sum(dim=0)
-                    .clamp(min=0).to(_I32))                    # (n_r,)
-        prev_miss = (upd[:, :, None] & state.complaint).any(dim=0)
+        stale = fail.byz_ack_stale                             # (B, n_r)
+        prev_cum = (torch.where(upd, state.last_cum, 0).sum(dim=1)
+                    .clamp(min=0).to(_I32))                    # (B, n_r)
+        prev_miss = (upd[..., None] & state.complaint).any(dim=1)
         cum = torch.where(stale, prev_cum, cum)
-        claim = torch.where(stale[:, None],
-                            abs_idx[None, :] < prev_cum[:, None], claim)
-        miss = torch.where(stale[:, None], prev_miss, miss)
+        claim = torch.where(stale[:, :, None],
+                            abs_idx[:, None, :] < prev_cum[:, :, None], claim)
+        miss = torch.where(stale[:, :, None], prev_miss, miss)
         # implicit duplicate-cum complaint: cum unchanged since last ack to
         # the same sender => complain about index cum (if it exists).
-        dup_cum = state.last_cum == cum[None, :]               # (n_s, n_r)
-        dup_complaint = (dup_cum[:, :, None]
-                         & (abs_idx[None, None, :] == cum[None, :, None])
-                         & (cum[None, :, None] < m))
-        new_complaint = miss[None, :, :] | dup_complaint       # (n_s,n_r,W)
-        upd3 = upd[:, :, None]
-        known = state.known | (upd3 & claim[None, :, :])
-        repeat_c = torch.where(upd3, repeat_c | (complaint & new_complaint),
+        dup_cum = state.last_cum == cum[:, None, :]            # (B,n_s,n_r)
+        cum4 = cum[:, None, :, None]
+        dup_complaint = (dup_cum[..., None]
+                         & (abs_idx[:, None, None, :] == cum4) & (cum4 < m))
+        new_complaint = miss[:, None] | dup_complaint        # (B,n_s,n_r,W)
+        upd4 = upd[..., None]
+        known = state.known | (upd4 & claim[:, None])
+        repeat_c = torch.where(upd4, repeat_c | (complaint & new_complaint),
                                repeat_c)
-        complaint = torch.where(upd3, new_complaint, complaint)
-        last_cum = torch.where(upd, cum[None, :], state.last_cum)
+        complaint = torch.where(upd4, new_complaint, complaint)
+        last_cum = torch.where(upd, cum[:, None, :], state.last_cum)
 
         # (5) QUACK bookkeeping --------------------------------------------
         # the loss quorum is unused here (declaration works on t-1
@@ -647,36 +725,37 @@ def _protocol_step(spec: SimSpec, fail: FailArrays, sched_w, base, w: int):
             ack_floor=ack_floor, base=state.base,
             retired_delivered=state.retired_delivered)
 
-        qp = base + qprefix
-        min_qp = torch.where(honest_s, qp, _BIG).min()
+        qp = base[:, None] + qprefix
+        min_qp = torch.where(honest_s, qp, _BIG).min(dim=1).values
         metrics = torch.stack([
-            orig_ok.sum() + resend.sum(),
-            (bcast_sent.sum(dim=1) * reach_count).sum(),
-            resend.sum(),
-            alive_r.sum(),
-            (deliver_time >= 0).sum() + state.retired_delivered,
+            orig_ok.sum(dim=1) + resend.sum(dim=(1, 2)),
+            (bcast_sent.sum(dim=2) * reach_count).sum(dim=1),
+            resend.sum(dim=(1, 2)),
+            alive_r.sum(dim=1),
+            (deliver_time >= 0).sum(dim=1) + state.retired_delivered,
             min_qp,
-        ]).to(_I32)
+        ], dim=1).to(_I32)
         return new_state, metrics
 
     return step
 
 
-def _init_state(spec: SimSpec, w: int, device) -> SimState:
+def _init_state(spec: SimSpec, w: int, device, lanes: int = 1) -> SimState:
     n_s, n_r = spec.n_s, spec.n_r
     shapes = _window_shapes(n_s, n_r, w)
     window = {
-        name: torch.full(shapes[name], fill, device=device,
+        name: torch.full((lanes,) + shapes[name], fill, device=device,
                          dtype=(torch.bool if isinstance(fill, bool)
                                 else _I32))
         for name, fill in _WINDOW_FILLS.items()}
     return SimState(
         **window,
-        last_cum=torch.full((n_s, n_r), -1, dtype=_I32, device=device),
-        hq_reports=torch.zeros((n_r, n_s), dtype=_I32, device=device),
-        ack_floor=torch.zeros((n_r,), dtype=_I32, device=device),
-        base=torch.zeros((), dtype=_I32, device=device),
-        retired_delivered=torch.zeros((), dtype=_I32, device=device),
+        last_cum=torch.full((lanes, n_s, n_r), -1, dtype=_I32,
+                            device=device),
+        hq_reports=torch.zeros((lanes, n_r, n_s), dtype=_I32, device=device),
+        ack_floor=torch.zeros((lanes, n_r), dtype=_I32, device=device),
+        base=torch.zeros((lanes,), dtype=_I32, device=device),
+        retired_delivered=torch.zeros((lanes,), dtype=_I32, device=device),
     )
 
 
@@ -687,39 +766,50 @@ def _sched_arrays(spec: SimSpec, device):
     return t(spec.orig_sender), t(spec.orig_recv), t(spec.orig_step)
 
 
-# ------------------------------------------------------------------ runs
-def _run_dense(spec: SimSpec, device) -> Tuple[SimState, torch.Tensor]:
-    """Dense full-stream run: window = [0, M), no rotation.
+def _padded_sched(spec: SimSpec, w: int, device):
+    """The schedule padded by ``w`` never-sent slots, so that a window at
+    any base <= M reads inside it."""
+    osend, orecv, ostep = (np.asarray(a, dtype=np.int64) for a in
+                           (spec.orig_sender, spec.orig_recv,
+                            spec.orig_step))
 
-    Returns the final state and the (steps, 6) int32 metrics, both on
+    def pad(a, fill):
+        return torch.tensor(np.concatenate([a, np.full(w, fill)]),
+                            dtype=_I32, device=device)
+
+    return (pad(osend, 0), pad(orecv, 0),
+            pad(np.minimum(ostep, _NEVER_STEP), _NEVER_STEP))
+
+
+def _sched_window(sched_p, base: torch.Tensor, w: int):
+    """Each lane's (B, w) schedule window: a gather at ``base + [0, w)``."""
+    ix = (base[:, None] + torch.arange(w, dtype=_I32, device=base.device)
+          ).long()
+    return tuple(a[ix] for a in sched_p)
+
+
+# ------------------------------------------------------------ dense run
+def _run_dense(spec: SimSpec, device) -> Tuple[SimState, torch.Tensor]:
+    """Dense full-stream run: one lane, window = [0, M), no rotation.
+
+    Returns the final state and the (1, steps, 6) int32 metrics, both on
     ``device``; the loop never waits for the device.
     """
-    fail = _fail_arrays(spec, device)
-    step = _protocol_step(spec, fail, _sched_arrays(spec, device), 0, spec.m)
+    fail = _fail_arrays([spec], device)
     state = _init_state(spec, spec.m, device)
+    sched_w = tuple(a[None] for a in _sched_arrays(spec, device))
+    step = _protocol_step(spec, fail, sched_w, state.base, spec.m)
+    ts = torch.arange(spec.steps, dtype=_I32, device=device)
     per_round: List[torch.Tensor] = []
-    for t in range(spec.steps):
-        state, ms = step(state, t)
+    for i in range(spec.steps):
+        state, ms = step(state, ts[i])
         per_round.append(ms)
     if per_round:
-        metrics = torch.stack(per_round)
+        metrics = torch.stack(per_round, dim=1)
     else:
-        metrics = torch.zeros((0, len(StepMetrics._fields)), dtype=_I32,
+        metrics = torch.zeros((1, 0, len(StepMetrics._fields)), dtype=_I32,
                               device=device)
     return state, metrics
-
-
-def _to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
-    """Bring int32/bool device tensors to numpy in ONE device->host copy
-    (flattened into one int32 buffer and split back, dtypes kept)."""
-    flat = torch.cat([t.reshape(-1).to(_I32) for t in tensors]).cpu().numpy()
-    out, at = [], 0
-    for t in tensors:
-        n = t.numel()
-        a = flat[at:at + n].reshape(tuple(t.shape))
-        out.append(a.astype(bool) if t.dtype == torch.bool else a)
-        at += n
-    return out
 
 
 def _resolve_device(device) -> torch.device:
@@ -747,21 +837,359 @@ def _latency_from(send_step: np.ndarray,
                     -1).astype(np.int32)
 
 
-def run_simulation(spec: SimSpec, device=None) -> SimResult:
-    """Run one spec on ``device`` (default: CUDA; raises if it is absent).
+# ------------------------------------------------------- windowed chunk
+def _rotate_device(s: SimState, f: torch.Tensor, w: int) -> SimState:
+    """Shift each lane's ring buffers left by its GC frontier ``f`` (B,).
 
-    Only the dense engine exists so far: a spec with ``window_slots > 0``
-    or ``collect_metrics`` raises ``NotImplementedError``.
+    Each window-indexed tensor is extended by W fresh-fill columns and the
+    W columns at each lane's offset ``f`` are gathered: columns
+    ``[f, W)`` move to ``[0, W - f)`` and the tail refills with fresh
+    slots. The gather writes new contiguous tensors (the quorum kernel
+    takes no strided view). ``base`` and ``retired_delivered`` advance on
+    the device.
     """
-    if spec.window_slots:
-        raise NotImplementedError(_WINDOWED_TODO)
+    col = torch.arange(w, dtype=_I32, device=f.device)
+    ix = (f[:, None] + col).long()                             # (B, W)
+
+    def shift(a, fill):
+        ext = torch.cat([a, torch.full(a.shape[:-1] + (w,), fill,
+                                       dtype=a.dtype, device=a.device)],
+                        dim=-1)
+        lead = (a.shape[0],) + (1,) * (a.dim() - 2) + (w,)
+        return torch.gather(ext, -1, ix.reshape(lead).expand(a.shape))
+
+    retired_deliv = ((s.deliver_time >= 0) & (col < f[:, None])).sum(dim=1)
+    return s._replace(
+        **{name: shift(getattr(s, name), fill)
+           for name, fill in _WINDOW_FILLS.items()},
+        base=(s.base + f).to(_I32),
+        retired_delivered=(s.retired_delivered + retired_deliv).to(_I32))
+
+
+def _chunk(spec: SimSpec, fail: FailArrays, sched_p, state: SimState,
+           ts: torch.Tensor, w: int, rotate: bool):
+    """One windowed chunk: the rounds ``ts`` ((c,) int32 on the device),
+    then, when ``rotate``, the GC frontier and the ring rotation.
+
+    Returns ``(state, metrics (B, c, 6) int32, ChunkQueue)``; the queue
+    holds the pre-rotation outputs and each lane's retired count (0 for
+    the final chunk of a run, which does not rotate). Plain tensor work
+    with no host sync.
+    """
+    base0 = state.base
+    step = _protocol_step(spec, fail, _sched_window(sched_p, base0, w),
+                          base0, w)
+    per_round = []
+    for i in range(ts.shape[0]):
+        state, ms = step(state, ts[i])
+        per_round.append(ms)
+    ms = torch.stack(per_round, dim=1)
+    if not rotate:
+        return state, ms, ChunkQueue(
+            state.quack_time, state.deliver_time, state.retry,
+            state.recv_has, base0, torch.zeros_like(base0))
+    f = gc_frontier_device(
+        base=base0, t_next=ts[-1] + 1, m=spec.m,
+        known=state.known, bcast_q=state.bcast_q,
+        recv_has=state.recv_has, ack_floor=state.ack_floor,
+        stakes_r=fail.stakes_r, quack_thresh=fail.quack_thresh,
+        orig_sent=state.orig_sent, crash_r=fail.crash_r,
+        byz_ack_low=fail.byz_ack_low)
+    queue = ChunkQueue(state.quack_time, state.deliver_time, state.retry,
+                       state.recv_has, base0, f)
+    return _rotate_device(state, f, w), ms, queue
+
+
+# ------------------------------------------------ growth and migration
+def _widen_on_overflow(spec: SimSpec, w: int, base: int, need: int,
+                       t: int) -> Optional[int]:
+    """Overflow policy: raise (strict), grow 2x, or None => dense layout.
+
+    ``None`` tells the caller to migrate the windowed state into the
+    dense layout (base 0, W = M) and continue — no rerun from scratch.
+    """
+    if not spec.adaptive_window:
+        raise ValueError(
+            f"sliding window overflow: round {t} dispatches message "
+            f"{need} but the window covers [{base}, {base + w}) — the GC "
+            f"frontier is {base}. Increase SimConfig.window_slots (or use "
+            f"window_slots='auto'), or leave adaptive_window=True for "
+            f"automatic growth / dense-layout migration.")
+    return grow_window(w, base, need, spec.m)
+
+
+def _migrate_dense_batch(spec: SimSpec, state: SimState,
+                         bases: np.ndarray, out_quack: np.ndarray,
+                         out_deliver: np.ndarray, out_retry: np.ndarray,
+                         out_recv: np.ndarray) -> SimState:
+    """Embed the windowed state into the dense layout (base 0, W = M).
+
+    Adaptive-growth endpoint: when the next doubling would reach the full
+    stream length, the run keeps its partial progress instead of rerunning
+    from round 0. Live window columns land at their absolute positions
+    ``[base_b, base_b + W)``; columns below each lane's base are rebuilt
+    from the already-drained retired outputs plus the retirement
+    invariants themselves — a retired slot is QUACKed at *every* sender
+    (``known`` may be set all-True without changing any threshold
+    decision), effectively received at every receiver that still matters
+    (``recv_has`` restored from the drained snapshot; the rest is covered
+    by the preserved ack floor), has no broadcast pending and its
+    original send dispatched. Per-replica state (``last_cum`` /
+    ``hq_reports`` / ``ack_floor``) carries over unchanged, so the
+    continued run is bit-identical in every output to a dense run from
+    round 0.
+
+    One-off host transform: one device->host copy of the state, numpy,
+    and back to the state's device.
+    """
+    n_b = len(bases)
+    n_s, n_r, m = spec.n_s, spec.n_r, spec.m
+    device = state.base.device
+    state = host_state(state)
+    w = state.deliver_time.shape[-1]
+    shapes = _window_shapes(n_s, n_r, m)
+    dense = {
+        name: np.full((n_b,) + shapes[name], fill,
+                      dtype=(bool if isinstance(fill, bool) else np.int32))
+        for name, fill in _WINDOW_FILLS.items()}
+    for b in range(n_b):
+        lo = int(bases[b])
+        live = min(w, m - lo)
+        if live > 0:
+            for name in _WINDOW_FILLS:
+                dense[name][b][..., lo:lo + live] = \
+                    getattr(state, name)[b][..., :live]
+        if lo > 0:
+            dense["recv_has"][b][..., :lo] = out_recv[b][..., :lo]
+            dense["retry"][b][..., :lo] = out_retry[b][..., :lo]
+            dense["quack_time"][b][..., :lo] = out_quack[b][..., :lo]
+            dense["deliver_time"][b][:lo] = out_deliver[b][:lo]
+            dense["known"][b][..., :lo] = True
+            dense["bcast_done"][b][..., :lo] = True
+            dense["orig_sent"][b][:lo] = True
+    return device_state(SimState(
+        **dense,
+        last_cum=state.last_cum, hq_reports=state.hq_reports,
+        ack_floor=state.ack_floor,
+        base=np.zeros(n_b, dtype=np.int32),
+        retired_delivered=np.zeros(n_b, dtype=np.int32)), device)
+
+
+# -------------------------------------------------- host-side helpers
+def _max_msg_by_round(spec: SimSpec) -> np.ndarray:
+    """r[t] = highest message index dispatched at or before round t."""
+    ostep = np.asarray(spec.orig_step, dtype=np.int64)
+    r = np.full(max(spec.steps, 1), -1, dtype=np.int64)
+    valid = ostep < spec.steps
+    np.maximum.at(r, ostep[valid], np.nonzero(valid)[0])
+    return np.maximum.accumulate(r)
+
+
+def _scatter_retired(bases: np.ndarray, counts: np.ndarray, srcs,
+                     outs) -> np.ndarray:
+    """Fold one drained queue block into the (B, ..., M) output mirrors.
+
+    Writes each lane's leading ``counts[b]`` window columns to absolute
+    slots ``[bases[b], bases[b] + counts[b])`` — one vectorized
+    advanced-indexing write per output array. ``srcs``/``outs`` are the
+    (quack_time, deliver_time, retry, recv_has) quadruples. Returns the
+    advanced per-lane bases (the inputs are never mutated).
+    """
+    qq, qd, qr, qh = srcs
+    out_quack, out_deliver, out_retry, out_recv = outs
+    counts = np.asarray(counts, dtype=np.int64)
+    if counts.any():
+        w = qd.shape[-1]
+        mask = np.arange(w, dtype=np.int64)[None, :] < counts[:, None]
+        rows, cols = np.nonzero(mask)
+        abs_cols = bases[rows] + cols
+        out_quack[rows, :, abs_cols] = qq[rows, :, cols]
+        out_deliver[rows, abs_cols] = qd[rows, cols]
+        out_retry[rows, :, abs_cols] = qr[rows, :, cols]
+        out_recv[rows, :, abs_cols] = qh[rows, :, cols]
+    return bases + counts
+
+
+def _concat_metrics(n_b: int, metric_parts) -> StepMetrics:
+    """Concatenate per-chunk (B, c) metric parts into (B, t) arrays."""
+    if not metric_parts:
+        return StepMetrics(*(np.zeros((n_b, 0), dtype=np.int32)
+                             for _ in StepMetrics._fields))
+    return StepMetrics(*(
+        np.concatenate([np.asarray(getattr(p, name)) for p in metric_parts],
+                       axis=-1)
+        for name in StepMetrics._fields))
+
+
+# ------------------------------------------------------- windowed loop
+def _run_windowed(spec: SimSpec, device) -> SimResult:
+    """Single windowed run == one lane of the windowed loop."""
+    return _run_windowed_batch([spec], device)[0]
+
+
+def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
+    """The windowed loop over lanes that share a shape (one per spec).
+
+    One dispatch per chunk: ``chunk_steps`` rounds, then each lane's GC
+    frontier and ring rotation on the device (``_chunk``). The host then
+    drains the chunk's ``ChunkQueue`` and round metrics in one
+    device->host copy and folds the retired columns into the (B, ..., M)
+    output mirrors. Before each chunk the host checks, per lane against
+    its own base, that the window holds every message dispatched by the
+    chunk's last round; on overflow the window grows 2x for all lanes, or
+    the state migrates to the dense layout (``_migrate_dense_batch``),
+    and each decision is recorded as a ``WindowGrowthEvent``. The final
+    chunk does not rotate; a last copy flushes the live window.
+
+    Superchunk K = 1 whatever ``spec.superchunk`` says: the reference
+    guarantees outputs, metrics, frontier trajectories and growth events
+    identical for every K, so K only changes how many chunks a dispatch
+    fuses. Commit floors are held at M (a standalone link); the
+    dispatch-round mirror ``send_step`` follows them as the reference's
+    does.
+
+    With ``debug_checks`` each drain checks that the host's base mirror
+    tracks the device rotation and, for lanes whose adversary stakes keep
+    ``retire_safety_stakes_ok``, that every retired slot is held by at
+    least one receiver replica (GC safety).
+    """
+    spec0 = specs[0]
+    n_b = len(specs)
+    n_s, n_r, m = spec0.n_s, spec0.n_r, spec0.m
+    c_full = max(spec0.chunk_steps, 1)
+    w = spec0.window_slots
+    fail = _fail_arrays(specs, device)
+    state = _init_state(spec0, w, device, n_b)
+    sched_p = _padded_sched(spec0, w, device)
+
+    out_quack = np.full((n_b, n_s, m), -1, dtype=np.int32)
+    out_deliver = np.full((n_b, m), -1, dtype=np.int32)
+    out_retry = np.zeros((n_b, n_s, m), dtype=np.int32)
+    out_recv = np.zeros((n_b, n_r, m), dtype=bool)
+    outs = (out_quack, out_deliver, out_retry, out_recv)
+    bases = np.zeros(n_b, dtype=np.int64)
+    bases_hist = [bases.copy()]
+    floors = np.full(n_b, m, dtype=np.int64)
+    # per-message dispatch-round mirror: filled as floors open, feeds
+    # SimResult.send_step / delivery_latency
+    send_step = np.full((n_b, m), -1, dtype=np.int64)
+    open_floor = np.zeros(n_b, dtype=np.int64)
+    ostep = np.asarray(spec0.orig_step, dtype=np.int64)
+    dispatched_by = _max_msg_by_round(spec0)
+    metric_parts: List[StepMetrics] = []
+    growth_events: List[WindowGrowthEvent] = []
+    debug = spec0.debug_checks
+    retire_check = np.array([retire_safety_stakes_ok(s) for s in specs])
+
+    t = 0
+    while t < spec0.steps:
+        c = min(c_full, spec0.steps - t)
+        # dispatch-round mirror: floors that opened since the last
+        # boundary dispatch their messages at max(schedule round, now)
+        for b in np.nonzero(floors > open_floor)[0]:
+            ks = np.arange(open_floor[b], floors[b])
+            send_step[b, ks] = np.maximum(ostep[ks], t)
+            open_floor[b] = floors[b]
+        # per-lane overflow check: a lane's window must hold every
+        # message dispatched by the chunk's last round (capped by its
+        # commit floor), measured against its own base
+        need_b = np.minimum(int(dispatched_by[t + c - 1]), floors - 1)
+        over = need_b - bases
+        b_worst = int(over.argmax())
+        if over[b_worst] >= w:
+            new_w = _widen_on_overflow(spec0, w, int(bases[b_worst]),
+                                       int(need_b[b_worst]), t + c - 1)
+            growth_events.append(WindowGrowthEvent(
+                step=t + c - 1, scenario=b_worst,
+                need=int(need_b[b_worst]), old_w=w,
+                new_w=m if new_w is None else new_w,
+                dense_migration=new_w is None))
+            if new_w is None:
+                state = _migrate_dense_batch(spec0, state, bases, *outs)
+                bases[:] = 0
+                w = m
+            else:
+                state = pad_window(state, new_w)
+                w = new_w
+            sched_p = _padded_sched(spec0, w, device)
+        # the schedule gather reads [base, base + w) of a schedule padded
+        # by w: it stays in range while every base is at most M
+        if (bases > m).any():
+            raise RuntimeError(f"window bases {bases} past the stream end "
+                               f"{m}")
+        last = t + c >= spec0.steps
+        ts = torch.arange(t, t + c, dtype=_I32, device=device)
+        state, ms, queue = _chunk(spec0, fail, sched_p, state, ts, w,
+                                  rotate=not last)
+        # the drain: one device->host copy for the queue and the metrics
+        qq, qd, qr, qh, qbase, qcount, msh = to_host(
+            [queue.quack_time, queue.deliver_time, queue.retry,
+             queue.recv_has, queue.base, queue.count, ms])
+        metric_parts.append(StepMetrics(*(msh[:, :, i] for i in
+                                          range(msh.shape[2]))))
+        t += c
+        if last:
+            break                  # final chunk: nothing retired
+        if debug and not (qbase == bases).all():
+            raise RuntimeError(
+                "window base mirror diverged from device rotation")
+        if debug and retire_check.any():
+            held = qh.any(axis=1)                               # (B, W)
+            ret = np.arange(held.shape[-1])[None, :] < qcount[:, None]
+            bad = ret & ~held & retire_check[:, None]
+            if bad.any():
+                b, kk = np.argwhere(bad)[0]
+                raise RuntimeError(
+                    f"GC safety violation: lane {b} retired window "
+                    f"slot {kk} (abs seqno {int(bases[b]) + int(kk)}) "
+                    f"that no replica has received — the frontier "
+                    f"outran an undelivered message under an adversary "
+                    f"whose stake budget should make that impossible")
+        bases = _scatter_retired(bases, qcount, (qq, qd, qr, qh), outs)
+        bases_hist.append(bases.copy())
+
+    # final flush: the live window, in one copy
+    _scatter_retired(bases, np.minimum(w, m - bases).clip(min=0),
+                     to_host([state.quack_time, state.deliver_time,
+                              state.retry, state.recv_has]), outs)
+
+    # a dispatch round beyond the run never fired
+    ss_all = np.where((send_step >= 0) & (send_step < spec0.steps),
+                      send_step, -1).astype(np.int32)
+    traj = np.stack(bases_hist)                     # (n_boundaries, n_b)
+    all_metrics = _concat_metrics(n_b, metric_parts)
+    events = tuple(growth_events)
+    return [SimResult(
+        spec=spec,
+        metrics=StepMetrics(*(np.ascontiguousarray(getattr(all_metrics,
+                                                           name)[b])
+                              for name in StepMetrics._fields)),
+        quack_time=out_quack[b], deliver_time=out_deliver[b],
+        retry=out_retry[b], recv_has=out_recv[b],
+        gc_frontiers=traj[:, b].astype(np.int64),
+        final_window_slots=w,
+        window_growth_events=events,
+        send_step=ss_all[b],
+        delivery_latency=_latency_from(ss_all[b], out_deliver[b]),
+    ) for b, spec in enumerate(specs)]
+
+
+# ------------------------------------------------------------------ runs
+def run_simulation(spec: SimSpec, device=None) -> SimResult:
+    """Run one spec on ``device`` (default: CUDA; raises if it is absent):
+    windowed when ``spec.window_slots > 0``, else dense.
+
+    ``collect_metrics`` raises ``NotImplementedError`` (not ported yet).
+    """
     if spec.collect_metrics:
         raise NotImplementedError(_METRICS_TODO)
     dev = _resolve_device(device)
+    if spec.window_slots:
+        return _run_windowed(spec, dev)
     final, metrics = _run_dense(spec, dev)
-    quack_time, deliver_time, retry, recv_has, ms = _to_host(
-        [final.quack_time, final.deliver_time, final.retry, final.recv_has,
-         metrics])
+    quack_time, deliver_time, retry, recv_has, ms = to_host(
+        [final.quack_time[0], final.deliver_time[0], final.retry[0],
+         final.recv_has[0], metrics[0]])
     ss = _dense_send_step(spec)
     return SimResult(
         spec=spec,

@@ -1,14 +1,24 @@
-"""Window-layout invariants of the simulator's scan state.
+"""Window-layout invariants of the simulator's state, and moving it.
 
 Which ``SimState`` fields are window-indexed, what a fresh (never-touched)
-slot holds, and each field's shape at window width ``w``. The single
-source of truth for state initialisation; the windowed engine's rotation
-and growth will refill from the same table.
+slot holds, and each field's shape at window width ``w``: the single
+source of truth for state initialisation, the windowed engine's ring
+rotation refills, adaptive growth and dense-layout migration. Beside it,
+the host<->device moves of a whole state tree and the width migration.
+
+Everything here works structurally on ``NamedTuple`` state trees
+(``_fields`` / ``_replace``), so it depends on nothing of the simulator.
 """
 
 from __future__ import annotations
 
-__all__ = ["WINDOW_FILLS", "window_shapes"]
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["WINDOW_FILLS", "window_shapes", "to_host", "host_state",
+           "device_state", "pad_window"]
 
 # window-indexed SimState fields -> neutral fill for a fresh slot
 WINDOW_FILLS = dict(recv_has=False, bcast_q=False, bcast_done=False,
@@ -22,3 +32,61 @@ def window_shapes(n_s: int, n_r: int, w: int) -> dict:
                 orig_sent=(w,), known=(n_s, n_r, w),
                 complaint=(n_s, n_r, w), repeat_c=(n_s, n_r, w),
                 retry=(n_s, w), quack_time=(n_s, w), deliver_time=(w,))
+
+
+def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Bring int32/bool tensors to numpy in ONE device->host copy
+    (flattened into one int32 buffer and split back, dtypes kept).
+
+    Raises ``TypeError`` on any other dtype, which the int32 packing
+    would not keep exactly.
+    """
+    for t in tensors:
+        if t.dtype not in (torch.int32, torch.bool):
+            raise TypeError(f"to_host packs int32/bool tensors, got "
+                            f"{t.dtype}")
+    flat = torch.cat([t.reshape(-1).to(torch.int32)
+                      for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        a = flat[at:at + n].reshape(tuple(t.shape))
+        out.append(a.astype(bool) if t.dtype == torch.bool else a)
+        at += n
+    return out
+
+
+def host_state(state):
+    """A state tree of int32/bool tensors as the same tree of numpy
+    arrays, in one device->host copy."""
+    return type(state)(*to_host(list(state)))
+
+
+def device_state(state, device):
+    """Push a host-side state tree onto ``device`` (exact: every leaf is
+    int32/bool, so the round trip keeps every bit)."""
+    return type(state)(*(torch.as_tensor(np.asarray(x), device=device)
+                         for x in state))
+
+
+def pad_window(state, new_w: int):
+    """Migrate a state tree to a wider window, keeping the live columns.
+
+    Window-indexed leaves gain fresh-fill tail slots; per-replica state,
+    ``base`` and leading (lane) axes are untouched, so the migrated state
+    resumes the identical protocol at the wider width. Works on trees of
+    tensors and of numpy arrays alike.
+    """
+    w = state.deliver_time.shape[-1]
+
+    def pad(a, fill):
+        if isinstance(a, np.ndarray):
+            ext = np.full(a.shape[:-1] + (new_w - w,), fill, dtype=a.dtype)
+            return np.concatenate([a, ext], axis=-1)
+        ext = torch.full(a.shape[:-1] + (new_w - w,), fill, dtype=a.dtype,
+                         device=a.device)
+        return torch.cat([a, ext], dim=-1)
+
+    return state._replace(
+        **{name: pad(getattr(state, name), fill)
+           for name, fill in WINDOW_FILLS.items()})

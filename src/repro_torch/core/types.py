@@ -299,20 +299,17 @@ class SimConfig:
                      (``gc.default_window_slots``), falling back to the
                      dense path when the computed W would not be smaller
                      than M (windowing would buy nothing); an int fixes W.
-                     This package runs the dense engine only so far: a
-                     spec that resolves to W > 0 raises
-                     ``NotImplementedError`` in ``run_simulation``.
-    chunk_steps:     rounds per chunk in windowed mode (sizes the "auto"
-                     window).
-    adaptive_window: overflow semantics of the windowed engine (grow W /
-                     migrate to dense, or raise). Carried so that configs
-                     match the JAX package; unused by the dense engine.
-    superchunk:      fusion depth K of the windowed engine. Carried so
-                     that configs match the JAX package; unused by the
-                     dense engine.
-    debug_checks:    per-drain invariant checks of the windowed engine.
-                     Carried so that configs match the JAX package;
-                     unused by the dense engine.
+    chunk_steps:     rounds per chunk in windowed mode: the GC frontier
+                     advances and the host drains once per chunk (also
+                     sizes the "auto" window).
+    adaptive_window: overflow semantics of the windowed engine: grow W 2x,
+                     or migrate to the dense layout once W would reach M
+                     (True); raise ``ValueError`` (False).
+    superchunk:      fusion depth K of the JAX package's windowed engine.
+                     Carried so that configs match; this package runs
+                     K = 1, whose outputs are the same for every K.
+    debug_checks:    per-drain invariant checks of the windowed engine
+                     (base mirror, GC safety).
     use_pallas_quack: kept only so that configs carry across from the
                      JAX package, where it selects the Pallas quorum
                      kernel. Here the quorum always goes through

@@ -2,35 +2,39 @@
 // quacked prefix, written for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/quack_scan.py::quack_scan
-// (_kernel, _kernel_no_lost, _prefix_scan). For claims and complaints
-// (S, R, W) bool (one byte per entry), stakes (R,) f32 and two () f32
-// thresholds it computes
+// (_kernel, _kernel_no_lost, _prefix_scan). For B independent lanes (one
+// simulated link each), claims and complaints (B, S, R, W) bool (one byte
+// per entry), stakes (B, R) f32 and two (B,) f32 thresholds it computes
 //
-//   quacked[s,w] = sum_r stakes[r] * claims[s,r,w]     >= qthr
-//   lost[s,w]    = sum_r stakes[r] * complaints[s,r,w] >= dthr  && !quacked
-//   prefix[s]    = length of the leading run of quacked columns of row s
+//   quacked[b,s,w] = sum_r stakes[b,r] * claims[b,s,r,w]     >= qthr[b]
+//   lost[b,s,w]    = sum_r stakes[b,r] * complaints[b,s,r,w] >= dthr[b]
+//                    && !quacked[b,s,w]
+//   prefix[b,s]    = length of the leading run of quacked columns of (b, s)
+//
+// The TPU kernel's (S, R, W) form is the B = 1 case of the same launch.
 //
 // What bounds it: device-memory bytes. Every bitmap byte is read once and
 // feeds one f32 add, far below the card's operations-per-byte balance. At
-// the simulator's main-path shape (S = R = 19, W = 65,536) one launch with
-// the loss quorum reads 47.3 MB and writes 2.5 MB, about 14.9 us at
+// the dense main-path shape (B = 1, S = R = 19, W = 65,536) one launch
+// with the loss quorum reads 47.3 MB and writes 2.5 MB, about 14.9 us at
 // 3.35 TB/s; without it, 24.9 MB, about 7.4 us. Every protocol round
-// launches it twice, once with and once without the loss quorum.
+// launches it twice, once with and once without the loss quorum; the
+// windowed engine once more per rotating chunk, for its GC frontier.
 //
 // Design:
 // * No sequential grid. The TPU kernel carries the prefix across W-blocks
 //   in a scratch cell, which relies on the TPU running its grid in order.
-//   Here the grid is (ceil(W / columns per block), S) and blocks run in any
-//   order: each block finds its first unquacked column (warp
+//   Here the grid is (ceil(W / columns per block), S, B) and blocks run in
+//   any order: each block finds its first unquacked column (warp
 //   __reduce_min_sync, then a shared-memory min over the warps) and issues
-//   one atomicMin on prefix[s], which the wrapper fills with W beforehand.
-//   A min does not depend on order, so the result is deterministic and
-//   equals cumprod(quacked).sum().
+//   one atomicMin on prefix[b, s], which the wrapper fills with W
+//   beforehand. A min does not depend on order, so the result is
+//   deterministic and equals cumprod(quacked).sum().
+// * Each block reads its own lane's stakes (staged in shared memory) and
+//   thresholds (through device pointers, so a run never syncs the host
+//   for them); R is a runtime value.
 // * No padding: the ragged edge of W is masked here, not padded by the
 //   caller.
-// * Thresholds are read through device pointers, so a run never syncs the
-//   host for them; stakes are staged in shared memory; R is a runtime
-//   value.
 // * Sum order: r ascending, in f32. claims are 0/1, so each term is the
 //   stake or 0 exactly, and FMA contraction cannot change a sum. The plain
 //   torch version sums in the same order, so the two agree bit for bit
@@ -105,20 +109,23 @@ quack_scan_kernel(const uint8_t* __restrict__ claims,
                   int* __restrict__ prefix, int R, int W) {
   extern __shared__ float s_stakes[];
   __shared__ int s_first[kWarps];
-  for (int r = threadIdx.x; r < R; r += kThreads) s_stakes[r] = stakes[r];
+  const int b = blockIdx.z;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    s_stakes[r] = stakes[static_cast<size_t>(b) * R + r];
+  }
   __syncthreads();
 
-  const int s = blockIdx.y;
+  const size_t bs = static_cast<size_t>(b) * gridDim.y + blockIdx.y;  // (b, s)
   const int64_t col = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
-  const size_t slab = static_cast<size_t>(s) * R * W;
-  const size_t row = static_cast<size_t>(s) * W;
+  const size_t slab = bs * R * W;
+  const size_t row = bs * W;
   int first = W;  // first unquacked column this thread owns; W = none
   // With VEC = 16 the wrapper guarantees W % 16 == 0, so a vector that
   // starts in range ends in range.
   if (col < W) {
     float acc[VEC];
     weigh<VEC>(claims + slab + col, s_stakes, R, W, acc);
-    const float q = __ldg(qthr);
+    const float q = __ldg(qthr + b);
     uint8_t qk[VEC];
 #pragma unroll
     for (int i = VEC - 1; i >= 0; --i) {
@@ -128,7 +135,7 @@ quack_scan_kernel(const uint8_t* __restrict__ claims,
     store_cols<VEC>(quacked + row + col, qk);
     if constexpr (LOST) {
       weigh<VEC>(complaints + slab + col, s_stakes, R, W, acc);
-      const float d = __ldg(dthr);
+      const float d = __ldg(dthr + b);
       uint8_t lk[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) lk[i] = (acc[i] >= d) && !qk[i];
@@ -144,17 +151,17 @@ quack_scan_kernel(const uint8_t* __restrict__ claims,
     int m = s_first[0];
 #pragma unroll
     for (int i = 1; i < kWarps; ++i) m = min(m, s_first[i]);
-    if (m < W) atomicMin(prefix + s, m);
+    if (m < W) atomicMin(prefix + bs, m);
   }
 }
 
 template <int VEC>
 void launch(const uint8_t* claims, const uint8_t* complaints,
             const float* stakes, const float* qthr, const float* dthr,
-            uint8_t* quacked, uint8_t* lost, int* prefix, int S, int R,
-            int W, bool compute_lost, cudaStream_t stream) {
+            uint8_t* quacked, uint8_t* lost, int* prefix, int B, int S,
+            int R, int W, bool compute_lost, cudaStream_t stream) {
   const int per_block = kThreads * VEC;
-  const dim3 grid((W + per_block - 1) / per_block, S);
+  const dim3 grid((W + per_block - 1) / per_block, S, B);
   const size_t smem = static_cast<size_t>(R) * sizeof(float);
   if (compute_lost) {
     quack_scan_kernel<VEC, true><<<grid, kThreads, smem, stream>>>(
@@ -172,7 +179,7 @@ void launch(const uint8_t* claims, const uint8_t* complaints,
 extern "C" int quack_scan_launch(const void* claims, const void* complaints,
                                  const void* stakes, const void* qthr,
                                  const void* dthr, void* quacked, void* lost,
-                                 void* prefix, int S, int R, int W,
+                                 void* prefix, int B, int S, int R, int W,
                                  int compute_lost, int vec16, void* stream) {
   const auto* c = static_cast<const uint8_t*>(claims);
   const auto* x = static_cast<const uint8_t*>(complaints);
@@ -184,9 +191,9 @@ extern "C" int quack_scan_launch(const void* claims, const void* complaints,
   auto* p = static_cast<int*>(prefix);
   auto strm = static_cast<cudaStream_t>(stream);
   if (vec16) {
-    launch<16>(c, x, st, q, d, qo, lo, p, S, R, W, compute_lost != 0, strm);
+    launch<16>(c, x, st, q, d, qo, lo, p, B, S, R, W, compute_lost != 0, strm);
   } else {
-    launch<1>(c, x, st, q, d, qo, lo, p, S, R, W, compute_lost != 0, strm);
+    launch<1>(c, x, st, q, d, qo, lo, p, B, S, R, W, compute_lost != 0, strm);
   }
   return static_cast<int>(cudaGetLastError());
 }

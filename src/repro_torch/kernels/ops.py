@@ -27,9 +27,12 @@ def quack_scan(claims: torch.Tensor, complaints, stakes: torch.Tensor,
                quack_thresh, dup_thresh, *, compute_lost: bool = True):
     """Stake-weighted QUACK / loss quorums and the quacked prefix.
 
-    claims/complaints: (S,R,W) bool; stakes: (R,) float32; thresholds
-    are floats or () float32 tensors. Returns ``(quacked (S,W) bool,
-    lost (S,W) bool or None, prefix (S,) int32)``; ``lost`` is ``None``
+    The reference's form: claims/complaints (S,R,W) bool, stakes (R,)
+    float32, thresholds floats or () float32 tensors; returns
+    ``(quacked (S,W) bool, lost (S,W) bool or None, prefix (S,) int32)``.
+    The lane form puts B independent lanes in front: claims/complaints
+    (B,S,R,W), stakes (B,R), thresholds (B,) tensors; outputs (B,S,W) and
+    (B,S). Both are one launch of the same kernel. ``lost`` is ``None``
     when ``compute_lost`` is false, and ``complaints`` may then be
     ``None``.
     """

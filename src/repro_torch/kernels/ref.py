@@ -14,35 +14,48 @@ MASK_VALUE = -1e30      # the masked score of the JAX package's attention
 
 
 def _weigh(bitmaps: torch.Tensor, stakes: torch.Tensor) -> torch.Tensor:
-    """(S,R,W) bool -> (S,W) f32 stake sums, summed over r ascending.
+    """(..., S, R, W) bool, stakes (..., R) -> (..., S, W) f32 stake sums,
+    summed over r ascending.
 
     The same order as the CUDA kernel; each term is the stake or 0
     exactly, so the two agree bit for bit for any stakes.
     """
-    acc = torch.zeros((bitmaps.shape[0], bitmaps.shape[2]),
+    acc = torch.zeros(bitmaps.shape[:-2] + bitmaps.shape[-1:],
                       dtype=torch.float32, device=bitmaps.device)
-    for r in range(bitmaps.shape[1]):
-        acc = acc + stakes[r] * bitmaps[:, r, :].to(torch.float32)
+    for r in range(bitmaps.shape[-2]):
+        st = stakes[..., r, None, None]            # (..., 1, 1)
+        acc = acc + st * bitmaps[..., r, :].to(torch.float32)
     return acc
+
+
+def _lane_thresh(x, like: torch.Tensor) -> torch.Tensor:
+    """A threshold (float, () tensor or one per lane) shaped to broadcast
+    against (..., S, W)."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    return x[..., None, None]
 
 
 def quack_reference(claims, complaints, stakes, quack_thresh, dup_thresh,
                     *, compute_lost: bool = True):
-    """QUACK aggregation oracle.
+    """QUACK aggregation oracle, in the lane form of the kernel or the
+    reference's one-lane form.
 
-    claims:     (S, R, W) bool — receiver r claims message w (to sender s)
-    complaints: (S, R, W) bool — repeat complaints (unused, may be
+    claims:     (B, S, R, W) or (S, R, W) bool — receiver r claims message
+                w (to sender s)
+    complaints: the same shape — repeat complaints (unused, may be
                 ``None``, when ``compute_lost`` is false)
-    stakes:     (R,) float32
-    Returns (quacked (S,W) bool, lost (S,W) bool or ``None``,
-    prefix (S,) int32).
+    stakes:     (B, R) or (R,) float32
+    thresholds: (B,) tensors, or floats / () tensors
+    Returns (quacked (B,S,W) bool, lost (B,S,W) bool or ``None``,
+    prefix (B,S) int32), without the B axis in the one-lane form.
     """
     stakes = stakes.to(torch.float32)
-    quacked = _weigh(claims, stakes) >= quack_thresh
+    quacked = _weigh(claims, stakes) >= _lane_thresh(quack_thresh, claims)
     lost = None
     if compute_lost:
-        lost = (_weigh(complaints, stakes) >= dup_thresh) & ~quacked
-    prefix = torch.cumprod(quacked.to(torch.int32), dim=1).sum(dim=1)
+        lost = ((_weigh(complaints, stakes)
+                 >= _lane_thresh(dup_thresh, claims)) & ~quacked)
+    prefix = torch.cumprod(quacked.to(torch.int32), dim=-1).sum(dim=-1)
     return quacked, lost, prefix.to(torch.int32)
 
 

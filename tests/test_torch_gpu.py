@@ -7,7 +7,9 @@ runs where the card is:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 Every test decides inside itself whether a card exists and skips where
-there is none. ``quack_scan`` and the simulator compare bit for bit: the
+there is none. ``quack_scan`` (one-lane and lane forms) and the
+simulator (dense and windowed, growth and dense fallback included)
+compare bit for bit: the
 kernel sums stakes in the same order as its plain version, and the
 simulator's state is int32/bool. The attention and RWKV6 kernels sum in
 another order than their plain versions, so they are held to tolerances:
@@ -119,6 +121,131 @@ def test_cuda_run_matches_cpu_run():
     for f in tsim.StepMetrics._fields:
         a, b = getattr(gpu.metrics, f), getattr(cpu.metrics, f)
         assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+# the lane form: (B, S, R, W) with per-lane real stakes and thresholds, at
+# ragged widths and at the windowed full-size shape (W = 6,016)
+LANE_SHAPES = [(2, 3, 7, 100), (3, 2, 16, 512), (2, 19, 19, 777),
+               (2, 19, 19, 6016)]
+
+
+@pytest.mark.parametrize("compute_lost", [True, False],
+                         ids=["lost", "no_lost"])
+@pytest.mark.parametrize("b,s,r,w", LANE_SHAPES,
+                         ids=[f"{b}x{s}x{r}x{w}" for b, s, r, w in
+                              LANE_SHAPES])
+def test_cuda_lane_kernel_matches_plain(b, s, r, w, compute_lost):
+    _need_cuda()
+    rng = np.random.default_rng(b * 1000 + w)
+    claims = rng.random((b, s, r, w)) < 0.6
+    claims[:, :, : r // 2 + 1, : w // 3] = True
+    comps = rng.random((b, s, r, w)) < 0.2
+    stakes = (rng.random((b, r)) + 0.5).astype(np.float32)
+    share = np.linspace(0.45, 0.65, b, dtype=np.float32)
+    qthr = stakes.sum(1) * share
+    dthr = stakes.sum(1) * (share - 0.25)
+    args = [torch.as_tensor(x) for x in (claims, comps, stakes, qthr, dthr)]
+    want = quack_reference(*args, compute_lost=compute_lost)
+    before = cuda_quack_scan.launches
+    got = ops.quack_scan(*(a.cuda() for a in args),
+                         compute_lost=compute_lost)
+    torch.cuda.synchronize()
+    assert cuda_quack_scan.launches == before + 1
+    for g, w_ in zip(got, want):
+        if w_ is None:
+            assert g is None
+        else:
+            assert g.dtype == w_.dtype and torch.equal(g.cpu(), w_)
+
+
+# the windowed fixtures of tests/test_windowed.py, restated with the
+# port's types (this file imports no JAX), and its growth and
+# dense-fallback specs: (name, sender, receiver, SimConfig kwargs,
+# failures)
+_BFT1, _CFT1 = RSMConfig.bft(1), RSMConfig.cft(1)
+_STALL = dict(byz_bcast_partial=(True, False, False, False), bcast_limit=2)
+WINDOWED = [
+    ("failure_free", _BFT1, _BFT1,
+     dict(n_msgs=24, steps=30, window=1, phi=6, window_slots=16,
+          chunk_steps=4), FailureScenario.none()),
+    ("failure_free_w2", _BFT1, _BFT1,
+     dict(n_msgs=24, steps=30, window=2, phi=6, window_slots=24,
+          chunk_steps=2), FailureScenario.none()),
+    ("crash_sender", _BFT1, _BFT1,
+     dict(n_msgs=24, steps=150, window=1, phi=6, window_slots=24,
+          chunk_steps=8), FailureScenario(crash_s=(1, -1, -1, -1))),
+    ("byzantine_recv", _BFT1, _BFT1,
+     dict(n_msgs=24, steps=200, window=1, phi=6, window_slots=24,
+          chunk_steps=16),
+     FailureScenario(byz_recv_drop=(True, False, False, False),
+                     byz_ack_low=(False, True, False, False))),
+    ("crash_plus_byz", _BFT1, _BFT1,
+     dict(n_msgs=24, steps=240, window=1, phi=6, window_slots=24,
+          chunk_steps=32),
+     FailureScenario(crash_s=(2, -1, -1, -1),
+                     byz_recv_drop=(True, False, False, False))),
+    ("liar_low", _BFT1, _BFT1,
+     dict(n_msgs=24, steps=150, window=1, phi=6, window_slots=24,
+          chunk_steps=8),
+     FailureScenario(byz_ack_low=(True, False, False, False))),
+    ("cft_dup_resend", _CFT1, _CFT1,
+     dict(n_msgs=12, steps=120, window=1, phi=6, window_slots=12,
+          chunk_steps=8), FailureScenario(crash_s=(1, -1, -1))),
+    ("gc_stall_defence", _BFT1, _BFT1,
+     dict(n_msgs=24, steps=300, window=1, phi=6, window_slots=24,
+          chunk_steps=16),
+     FailureScenario(**_STALL, crash_r=(-1, 8, -1, -1))),
+    ("staked_dss", RSMConfig(n=4, u=333, r=333,
+                             stakes=(333., 223., 222., 222.)),
+     RSMConfig(n=4, u=333, r=333, stakes=(250., 250., 250., 250.)),
+     dict(n_msgs=24, steps=80, window=2, phi=6, scheduler="dss",
+          quantum=12, window_slots=24, chunk_steps=8),
+     FailureScenario.none()),
+    ("mixed_cft_to_bft", _CFT1, _BFT1,
+     dict(n_msgs=24, steps=60, window=2, phi=6, window_slots=24,
+          chunk_steps=4), FailureScenario.none()),
+    ("mixed_bft_to_cft", _BFT1, _CFT1,
+     dict(n_msgs=24, steps=60, window=2, phi=6, window_slots=24,
+          chunk_steps=4), FailureScenario.none()),
+    ("ack_advance_liar", _BFT1, _BFT1,
+     dict(n_msgs=24, steps=120, window=1, phi=6, window_slots=24,
+          chunk_steps=8), FailureScenario(byz_ack_advance=(3, 0, 0, 0))),
+    ("gc_stall_adversary", _BFT1, _BFT1,
+     dict(n_msgs=128, steps=128 // 4 + 80, window=1, phi=6,
+          window_slots=16, chunk_steps=8), FailureScenario(**_STALL)),
+    ("dense_fallback", _BFT1, _BFT1,
+     dict(n_msgs=64, steps=200, window=1, phi=6, window_slots=16,
+          chunk_steps=8),
+     FailureScenario(**_STALL, crash_r=(-1, 8, -1, -1))),
+]
+
+
+@pytest.mark.parametrize("name,snd,rcv,simkw,fails", WINDOWED,
+                         ids=[f[0] for f in WINDOWED])
+def test_windowed_cuda_run_matches_cpu_run(name, snd, rcv, simkw, fails):
+    """Windowed on the card == windowed on the CPU, every field; the
+    kernel launches twice a round and once more per rotating chunk."""
+    _need_cuda()
+    spec = tsim.build_spec(snd, rcv, SimConfig(**simkw), fails)
+    assert spec.window_slots > 0
+    cpu = tsim.run_simulation(spec, device="cpu")
+    before = cuda_quack_scan.launches
+    gpu = tsim.run_simulation(spec)
+    chunks = -(-spec.steps // spec.chunk_steps)
+    assert cuda_quack_scan.launches - before == 2 * spec.steps + chunks - 1
+    for f in ("quack_time", "deliver_time", "retry", "recv_has",
+              "send_step", "delivery_latency", "gc_frontiers"):
+        a, b = getattr(gpu, f), getattr(cpu, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    for f in tsim.StepMetrics._fields:
+        a, b = getattr(gpu.metrics, f), getattr(cpu.metrics, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert gpu.final_window_slots == cpu.final_window_slots
+    assert gpu.window_growth_events == cpu.window_growth_events
+    if name in ("gc_stall_adversary", "dense_fallback"):
+        assert gpu.window_growth_events
+        assert gpu.window_growth_events[-1].dense_migration == (
+            name == "dense_fallback")
 
 
 # (B, H, KV, Sq, Skv, D, causal, window, block): the JAX test grid, the

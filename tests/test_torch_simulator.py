@@ -1,7 +1,8 @@
 """The torch port's dense simulator vs the JAX package, bit for bit.
 
 One plan (``SimSpec``) is built by the JAX package and carried into the
-port with ``spec_from_arrays``; both run it densely and every output,
+port with ``spec_from_arrays``; both run it densely (the port's step on
+one lane at W = M) and every output,
 round metric and derived field must agree exactly, dtypes included
 (tolerance 0: the state is int32/bool and the float32 stake sums are
 exact for the integer stakes used). The port runs on the CPU here
@@ -154,8 +155,9 @@ def test_spec_failures_round_trip():
 
 # ------------------------------------------- one round from a carried state
 def test_step_from_carried_jax_state():
-    """A state the JAX engine reached mid-run, carried over with
-    ``state_from_numpy``, steps to the same next state in the port."""
+    """A state the JAX engine reached mid-run, carried over as one lane of
+    the port's lane-batched state with ``state_from_numpy``, steps to the
+    same next state in the port (``t`` a device scalar, as in a run)."""
     name, snd, rcv, simkw, fails = FIXTURES[4]          # crash_plus_byz
     k = 40
     jspec = _dense_spec(snd, rcv, dict(simkw, steps=k), fails)
@@ -168,12 +170,15 @@ def test_step_from_carried_jax_state():
 
     tspec = _port_spec(jspec)
     dev = torch.device("cpu")
-    tstep = tsim._protocol_step(tspec, tsim._fail_arrays(tspec, dev),
-                                tsim._sched_arrays(tspec, dev), 0, tspec.m)
-    tnext, tms = tstep(tsim.state_from_numpy(state_np, dev), k)
+    state = tsim.state_from_numpy([np.asarray(x)[None] for x in state_np],
+                                  dev)
+    sched_w = tuple(a[None] for a in tsim._sched_arrays(tspec, dev))
+    tstep = tsim._protocol_step(tspec, tsim._fail_arrays([tspec], dev),
+                                sched_w, state.base, tspec.m)
+    tnext, tms = tstep(state, torch.tensor(k, dtype=torch.int32))
     for f in tsim.SimState._fields:
-        _same(getattr(tnext, f).numpy(), getattr(jnext, f), f)
-    _same(tms.numpy(), np.asarray(jms, dtype=np.int32), "metrics")
+        _same(getattr(tnext, f)[0].numpy(), getattr(jnext, f), f)
+    _same(tms[0].numpy(), np.asarray(jms, dtype=np.int32), "metrics")
 
 
 # -------------------------------------------------- (g) run_picsou
@@ -208,10 +213,13 @@ def test_analytic_throughput_matches_jax():
 
 # ------------------------------------------- engine limits of this slice
 def test_windowed_and_metrics_raise_not_implemented():
+    """``collect_metrics`` is still not ported and raises; a windowed spec
+    now runs (``tests/test_torch_windowed.py`` holds it to ``repro``)."""
     spec = tsim.build_spec(tcore.RSMConfig.bft(1), tcore.RSMConfig.bft(1),
                            tcore.SimConfig(n_msgs=256, window_slots=64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.run_simulation(spec, device="cpu")
+    res = tsim.run_simulation(spec, device="cpu")
+    assert spec.window_slots == 64 and res.final_window_slots >= 64
+    assert res.gc_frontiers[-1] > 0 and res.delivery_step() >= 0
     spec = tsim.build_spec(tcore.RSMConfig.bft(1), tcore.RSMConfig.bft(1),
                            tcore.SimConfig(n_msgs=64, steps=4,
                                            collect_metrics=True))
