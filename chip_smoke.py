@@ -33,29 +33,59 @@ Phases, each of which raises on failure (exit code non-zero):
    that grows under a GC-stalling adversary, and one that migrates to
    the dense layout. Every output, metric, GC frontier trajectory and
    final width must be bit-identical, and the kernel must launch
-   2 x steps times, plus once per rotating chunk when windowed.
+   2 x steps times, plus once per rotating chunk when windowed (launches
+   in chunk bodies that an overflow guard discarded are logged apart).
+   Then the four scenarios (failure-free and the three above) as the
+   lanes of one batch (``run_picsou_batch``) on the M = 1,024 link:
+   dense, and windowed at superchunk K = 1 and K = 8, each on CUDA and
+   on the CPU; every combination must agree lane by lane, and every lane
+   with its single run. Each run must meet the dispatch contract
+   (K = 1: one dispatch a chunk; without growth at most ceil(C / K) + 2;
+   host syncs at most dispatches + 2, plus one per dense migration;
+   every dispatch a CUDA-graph replay; dense: one replay per 32-round
+   block).
 5. Full-size phase: BFT f = 6 <-> f = 6 (n = 19, the paper's largest
    §6.1 network), M = 65,536, window 4, phi 32, failure-free and with
    ``crash_fraction(19, 19, 0.3, seed=2)``, through ``run_picsou``. Both
    runs must end fully delivered and fully quacked, with 2 x steps kernel
-   launches each; failure-free exactly one cross copy per message and no
-   resend, the crash run some resends.
+   launches and one graph replay per 32-round block each; failure-free
+   exactly one cross copy per message and no resend, the crash run some
+   resends. Each run logs its wall time (less its planning, ``build_spec``
+   timed beforehand on the same specs), rounds/s, messages/s, the device
+   time inside graph replays (CUDA events around each replay) against
+   the wall, the host time of the dispatches that captured their
+   program, and its peak device memory above what was allocated before.
 5w. Windowed at full width: the same link with ``window_slots="auto"``
    (W = 6,016) and 32-round chunks. A failure-free stream of M = 1,048,576
-   messages over ceil(M / 76) + 60 rounds must end all delivered and
-   quacked with one cross copy per message, no resend and the GC frontier
-   at M; its planning time, wall time, rounds/s, messages/s and peak
-   device memory are logged. The crash configuration of phase 5, windowed,
-   must give every output and metric of phase 5's dense crash run bit for
-   bit; its growth events and frontier trajectory are logged. Each run
-   must launch the kernel 2 x steps times plus once per rotating chunk.
-6. Where a full-size round's time goes: torch.profiler over 60 rounds of
-   the crash configuration, dense and windowed (kernels and kernel time
-   per round, the host's busiest calls, device busy share against the
-   same run unprofiled and against the engine's full run), the windowed
-   crash configuration over two chunks right after its dense migration,
-   and the host cost of a windowed chunk boundary (the same 384 rounds at
-   8, 16 and 32 rounds a chunk).
+   messages over ceil(M / 76) + 60 rounds, at K = 8 (the default) and at
+   K = 1, must end all delivered and quacked with one cross copy per
+   message, no resend and the GC frontier at M, the two runs bit for bit
+   equal, each within the dispatch contract; its planning time, and per
+   run the numbers of phase 5, are logged. The crash configuration of
+   phase 5, windowed, must give every output and metric of phase 5's
+   dense crash run bit for bit; its growth events and frontier
+   trajectory are logged. Each run must launch the kernel 2 x steps
+   times plus once per rotating chunk.
+5s. The full-width sweep: ``run_picsou_batch`` of the same link at
+   M = 262,144 over 3,510 rounds, W = 6,016, K = 8, with four lanes:
+   failure-free, and receivers 0-5 acking ``byz_ack_low``,
+   ``byz_ack_stale`` and ``byz_ack_advance`` of +1 (6 < 7 = quack_thresh
+   stake, inside the quorum budget). Every lane must end all delivered
+   and quacked and equal the same sweep at K = 1 bit for bit, lane 1 its
+   single ``run_picsou``; both sweeps within the launch and dispatch
+   contracts, with the numbers of phase 5.
+6. Where a graphed round's time goes: torch.profiler over a window of
+   replays (started and stopped at chosen dispatches, after every
+   capture) of the dense crash configuration, of the failure-free
+   windowed link at K = 8 (W = 6,016, and W = 65,536 on a 131,072-message
+   stream, wide enough for the launch-ahead path) and of the windowed
+   crash configuration past
+   its dense migration: kernels and kernel time per round, device busy
+   share against the same window unprofiled and against the engine's
+   full run, the host time of each replay, drain start and drain wait,
+   and the replays launched ahead of an earlier drain. Then the cost of a chunk boundary: the failure-free link at
+   K = 8 with 8, 16 and 32 rounds a chunk, the wall per round over four
+   steady spans each.
 7. Kernel-API phase (run right after phase 3, so that a fault in a
    kernel stops the script before the long runs): ``kernels.ops.
    flash_attention`` and ``kernels.ops.rwkv6_chunked`` at full model
@@ -102,6 +132,7 @@ result when there is no CUDA card or when the package is not beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -136,6 +167,10 @@ CHUNK = 32
 WIN_SHAPE = (1, 19, 19, 6016)    # the windowed quorum launch (B, S, R, W)
 M_LONG = 1_048_576
 STEPS_LONG = -(-M_LONG // 76) + 60
+# the full-width sweep: four lanes of the same link, M = 262,144 over
+# ceil(M / 76) + 60 = 3,510 rounds
+SWEEP_M = 262_144
+SWEEP_STEPS = -(-SWEEP_M // 76) + 60
 # each kernel of the JSON line: its source, and the TPU kernel it replaces
 CSRC = "src/repro_torch/kernels/csrc"
 KERNEL_FILES = {
@@ -847,31 +882,74 @@ def api_phase(dev):
 # ------------------------------------------------------ phases 4 to 6
 def _launches():
     from repro_torch.kernels.quack_scan import quack_scan
-    return quack_scan.launches, quack_scan.launches_no_lost
+    return (quack_scan.launches, quack_scan.launches_no_lost,
+            quack_scan.launches_skipped)
 
 
 def _reset_launches():
     from repro_torch.kernels.quack_scan import quack_scan
     quack_scan.launches = 0
     quack_scan.launches_no_lost = 0
+    quack_scan.launches_skipped = 0
 
 
 def _check_launches(spec, what: str):
     """The launch contract: two launches a round (one without the loss
     quorum), and a windowed run one more without it per rotating chunk,
-    its GC frontier (every chunk but the last rotates)."""
-    total, no_lost = _launches()
+    its GC frontier (every chunk but the last rotates). Launches of chunk
+    bodies that a span's overflow guard discarded are counted apart."""
+    total, no_lost, skipped = _launches()
     steps = spec.steps
     chunks = -(-steps // spec.chunk_steps) if spec.window_slots else 0
     rotating = max(chunks - 1, 0)
     log(f"[{what}] quack_scan launches: {total} "
         f"({total - no_lost} with the loss quorum, {no_lost} without; "
-        f"{steps} rounds, {rotating} rotating chunks)")
+        f"{steps} rounds, {rotating} rotating chunks; {skipped} more in "
+        f"chunk bodies an overflow guard discarded)")
     if total != 2 * steps + rotating or no_lost != steps + rotating:
         raise AssertionError(
             f"{what}: {total} launches ({no_lost} without the loss quorum) "
             f"for {steps} rounds and {rotating} rotating chunks; expected "
             f"{2 * steps + rotating} ({steps + rotating})")
+
+
+def _engine_counts():
+    """(dispatches, host syncs, captures, replays) so far."""
+    from repro_torch.core import graphs, simulator
+    return (simulator.chunk_dispatch_count(), simulator.host_sync_count(),
+            graphs.capture_count(), graphs.replay_count())
+
+
+def _check_dispatches(spec, counts, what: str, events=()):
+    """The dispatch contract of a windowed run at superchunk K, given its
+    growth ``events``: exactly C dispatches at K = 1; without growth at
+    most ceil(C / K) + 2 (a growth cuts a span, which is dispatched
+    again); host syncs at most dispatches + 2, plus one per dense
+    migration; and every dispatch a graph replay. A dense run: one
+    replay per 32-round block."""
+    from repro_torch.core.simulator import DENSE_BLOCK
+    dispatches, syncs, captures, replays = counts
+    if not spec.window_slots:
+        blocks = -(-spec.steps // DENSE_BLOCK)
+        log(f"[{what}] {replays} graph replays of {captures} captured "
+            f"programs for {blocks} dense blocks")
+        if replays != blocks or dispatches:
+            raise AssertionError(f"{what}: {replays} replays for {blocks} "
+                                 f"blocks")
+        return
+    chunks = -(-spec.steps // spec.chunk_steps)
+    k = spec.superchunk
+    ceiling = -(-chunks // k) + 2
+    migrations = sum(e.dense_migration for e in events)
+    log(f"[{what}] {dispatches} dispatches ({replays} graph replays of "
+        f"{captures} captured programs), {syncs} host syncs for {chunks} "
+        f"chunks at K = {k}"
+        + ("" if events else f" (ceiling ceil(C/K)+2 = {ceiling})"))
+    if ((k == 1 and dispatches != chunks)
+            or (not events and dispatches > ceiling)
+            or syncs > dispatches + 2 + migrations
+            or replays != dispatches):
+        raise AssertionError(f"{what}: dispatch contract broken")
 
 
 def growth(res):
@@ -901,6 +979,118 @@ def _assert_same(a, b, what: str, window: bool = True):
                    or a.window_growth_events != b.window_growth_events):
         raise AssertionError(f"{what}: the runs differ in their window")
     return len(fields) + len(a.metrics._fields)
+
+
+class Measured:
+    """Runs ``fn`` as one measured run: launch counts at 0 and peak memory
+    reset just before it; afterwards its wall time, peak device memory
+    above what was allocated before it, engine counters, the device time
+    spent inside graph replays (CUDA events around each replay of a
+    captured program, summed; the graphs' own gaps between kernels count
+    as busy), and the host time of the dispatches that captured their
+    program (warm-up, capture, first replay). ``plan_s``, the planning
+    (``build_spec``) time of the same specs measured beforehand, is taken
+    off the wall: the entry points plan inside the run."""
+
+    def __init__(self, fn, plan_s: float = 0.0):
+        from repro_torch.core import graphs
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        spans = []
+        captures = []
+        run = graphs.Programs.run
+
+        def timed(prog, key, body, t):
+            if key not in prog:
+                t0 = time.perf_counter()
+                out = run(prog, key, body, t)
+                captures.append(time.perf_counter() - t0)
+                return out
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = run(prog, key, body, t)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        before = _engine_counts()
+        _reset_launches()
+        graphs.Programs.run = timed
+        t0 = time.perf_counter()
+        try:
+            self.result = fn()     # ends in a device->host copy
+        finally:
+            self.wall = time.perf_counter() - t0 - plan_s
+            graphs.Programs.run = run
+        torch.cuda.synchronize()
+        self.launches = _launches()
+        self.counts = tuple(a - b for a, b in zip(_engine_counts(), before))
+        self.peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+        self.held_mib = held / 2 ** 20
+        self.graph_ms = sum(s.elapsed_time(e) for s, e in spans)
+        self.capture_s = sum(captures)
+
+    def line(self, steps: int, m: int) -> str:
+        return (f"{self.wall:.3f} s wall, {steps / self.wall:.1f} rounds/s, "
+                f"{m / self.wall:.1f} msgs/s; device inside graph replays "
+                f"{self.graph_ms / 1e3:.3f} s "
+                f"({self.graph_ms / 1e3 / self.wall:.1%} of the wall); "
+                f"capturing {self.capture_s:.3f} s (dispatches that "
+                f"captured their program); peak device memory of the run "
+                f"{self.peak_mib:.1f} MiB (above {self.held_mib:.1f} MiB "
+                f"allocated before it)")
+
+
+def _path_batch(cfg, scenarios):
+    """Phase 4, continued: the path checks' failure scenarios as the lanes
+    of one batch on one link (M = 1,024, 200 rounds): dense, and windowed
+    (W = 256, 16-round chunks) at K = 1 and K = 8, each on CUDA and on an
+    explicitly requested CPU. Every combination agrees lane by lane, and
+    every lane with its single run."""
+    from repro_torch.core import SimConfig, run_picsou, run_picsou_batch
+    sims = {"dense": SimConfig(n_msgs=1024, steps=200),
+            "windowed K=1": SimConfig(n_msgs=1024, steps=200,
+                                      window_slots=256, chunk_steps=16,
+                                      superchunk=1),
+            "windowed K=8": SimConfig(n_msgs=1024, steps=200,
+                                      window_slots=256, chunk_steps=16,
+                                      superchunk=8)}
+    out = {}
+    for name, sim in sims.items():
+        torch.cuda.synchronize()
+        before = _engine_counts()
+        _reset_launches()
+        gpu = run_picsou_batch(cfg, cfg, sim, scenarios)
+        _check_launches(gpu[0].spec, f"path batch {name}")
+        _check_dispatches(gpu[0].spec, tuple(
+            a - b for a, b in zip(_engine_counts(), before)),
+            f"path batch {name}", gpu[0].result.window_growth_events)
+        cpu = run_picsou_batch(cfg, cfg, sim, scenarios, device="cpu")
+        for b, (g, c) in enumerate(zip(gpu, cpu)):
+            _assert_same(g.result, c.result, f"path batch {name} lane {b}")
+        out[name] = gpu
+    n = 0
+    for b, f in enumerate(scenarios):
+        w1, w8, d = (out[name][b].result for name in
+                     ("windowed K=1", "windowed K=8", "dense"))
+        n = _assert_same(w1, w8, f"path batch lane {b}: K=1 vs K=8")
+        _assert_same(w8, d, f"path batch lane {b}: windowed vs dense",
+                     window=False)
+        single = run_picsou(cfg, cfg, sims["windowed K=8"], f).result
+        _assert_same(single, w8, f"path batch lane {b}: single run",
+                     window=single.window_growth_events
+                     == w8.window_growth_events)
+        single = run_picsou(cfg, cfg, sims["dense"], f).result
+        _assert_same(single, d, f"path batch lane {b}: single dense run")
+    res = out["windowed K=8"][0].result
+    log(f"[path] batch of {len(scenarios)} scenarios, M=1024, 200 rounds: "
+        f"dense, windowed K=1 and K=8, each cuda == cpu lane by lane; K=1 "
+        f"== K=8 ({n} fields), windowed == dense, every lane == its single "
+        f"run; final W {res.final_window_slots}, growth {growth(res)}")
 
 
 def path_phase():
@@ -946,35 +1136,45 @@ def path_phase():
             f"{int(res.gc_frontiers[-1])}; resends/msg "
             f"{gpu.resends_per_msg:.4f}, completion round "
             f"{res.completion_step()}")
+    _path_batch(cfg, [FailureScenario.none(), fails,
+                      FailureScenario(**stall),
+                      FailureScenario(**stall, crash_r=(-1, 8, -1, -1))])
 
 
-def _full_run(name: str, sim, fails, plan_s: float = 0.0):
-    """One full-size run through ``run_picsou`` with the launch counts at
-    0 and the peak memory reset; logs its numbers and checks that it
-    delivered and quacked every message."""
+def _plan_s(sim, scenarios) -> float:
+    """Seconds ``build_spec`` takes for these scenarios of the full-size
+    link (the planning an entry point does inside its run)."""
+    from repro_torch.core import RSMConfig, build_spec
+    cfg = RSMConfig.bft(6)
+    t0 = time.perf_counter()
+    for f in scenarios:
+        build_spec(cfg, cfg, sim, f)
+    return time.perf_counter() - t0
+
+
+def _full_run(name: str, sim, fails, plan_s=None):
+    """One full-size run through ``run_picsou`` (``Measured``, its
+    planning time taken off); logs its numbers, checks the launch and
+    dispatch contracts and that it delivered and quacked every
+    message."""
     from repro_torch.core import RSMConfig, run_picsou
     cfg = RSMConfig.bft(6)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()        # allocated before the run
-    _reset_launches()
-    t0 = time.perf_counter()
-    run = run_picsou(cfg, cfg, sim, fails)
-    wall = time.perf_counter() - t0 - plan_s   # ends in a device->host copy
-    peak = torch.cuda.max_memory_allocated() - held
+    if plan_s is None:
+        plan_s = _plan_s(sim, [fails])
+    run_m = Measured(lambda: run_picsou(cfg, cfg, sim, fails), plan_s)
+    run = run_m.result
     _check_launches(run.spec, name)
     res = run.result
+    _check_dispatches(run.spec, run_m.counts, name,
+                      res.window_growth_events)
     m, steps = sim.n_msgs, sim.steps
     log(f"[{name}] BFT f=6 <-> f=6, M={m}, steps={steps}, W="
-        f"{run.spec.window_slots or m}: {wall:.3f} s wall"
-        + (f" after {plan_s:.3f} s of planning" if plan_s else "")
-        + f", {steps / wall:.1f} rounds/s, {m / wall:.1f} msgs/s; "
-        f"completion round {res.completion_step()}, delivery round "
+        f"{run.spec.window_slots or m}, K={run.spec.superchunk}: "
+        + run_m.line(steps, m)
+        + f" (planning, {plan_s:.3f} s, taken off)"
+        + f"; completion round {res.completion_step()}, delivery round "
         f"{res.delivery_step()}, cross copies/msg "
-        f"{run.cross_copies_per_msg}, resends {res.total_resends()}, "
-        f"peak device memory of the run {peak / 2 ** 20:.1f} MiB (above "
-        f"{held / 2 ** 20:.1f} MiB allocated before it)")
+        f"{run.cross_copies_per_msg}, resends {res.total_resends()}")
     if not (run.all_delivered and run.all_quacked):
         raise AssertionError(f"{name}: not all delivered and quacked "
                              f"after {steps} rounds")
@@ -987,7 +1187,7 @@ def _full_run(name: str, sim, fails, plan_s: float = 0.0):
                                  f"message, no resends")
     elif res.total_resends() <= 0:
         raise AssertionError(f"{name}: expected resends")
-    return run, wall
+    return run, run_m
 
 
 def full_phase(steps_free: int, steps_crash: int):
@@ -1000,18 +1200,18 @@ def full_phase(steps_free: int, steps_crash: int):
                                 steps_free),
                                ("crash 0.3", crash, steps_crash)):
         sim = SimConfig(n_msgs=m, steps=steps, window=4, phi=32)
-        run, wall = _full_run(f"full {name}", sim, fails)
-        total, no_lost = _launches()
+        run, run_m = _full_run(f"full {name}", sim, fails)
+        total, no_lost, _ = run_m.launches
         launches[0] += total - no_lost
         launches[1] += no_lost
-        out[name] = (run.result, wall / steps * 1e3)
+        out[name] = (run.result, run_m.wall / steps * 1e3)
     return launches, out
 
 
 def windowed_phase(dense_crash, steps_crash: int):
     """Phase 5w: the windowed engine at full width. Returns the launch
-    counts and the unprofiled ms per round of the long stream and of the
-    crash run."""
+    counts and the unprofiled ms per round of the long stream at K = 8
+    and of the crash run."""
     from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
                                   build_spec)
     cfg = RSMConfig.bft(6)
@@ -1028,26 +1228,34 @@ def windowed_phase(dense_crash, steps_crash: int):
         f"{int(ostep.max())}, scan_state_nbytes {spec.scan_state_nbytes()}"
         f" (dense at this M: "
         f"{dataclasses.replace(spec, window_slots=0).scan_state_nbytes()})")
-    run, long_wall = _full_run("windowed long", sim, FailureScenario.none(),
-                               plan_s)
-    res = run.result
-    if int(res.gc_frontiers[-1]) != M_LONG or res.window_growth_events:
-        raise AssertionError(f"windowed long: frontier ends at "
-                             f"{int(res.gc_frontiers[-1])}, growth "
-                             f"{res.window_growth_events}")
-    log(f"[windowed long] final W {res.final_window_slots}, frontier "
-        f"trajectory of {len(res.gc_frontiers)} ending at "
-        f"{int(res.gc_frontiers[-1])}")
-    total, no_lost = _launches()
-    launches[0] += total - no_lost
-    launches[1] += no_lost
-    del run, res
+    long = {}
+    for k in (8, 1):
+        run, run_m = _full_run(f"windowed long K={k}",
+                               dataclasses.replace(sim, superchunk=k),
+                               FailureScenario.none(), plan_s)
+        res = run.result
+        if int(res.gc_frontiers[-1]) != M_LONG or res.window_growth_events:
+            raise AssertionError(f"windowed long: frontier ends at "
+                                 f"{int(res.gc_frontiers[-1])}, growth "
+                                 f"{res.window_growth_events}")
+        total, no_lost, _ = run_m.launches
+        launches[0] += total - no_lost
+        launches[1] += no_lost
+        long[k] = (res, run_m.wall / STEPS_LONG * 1e3)
+        del run
+    n = _assert_same(long[8][0], long[1][0], "windowed long K=8 vs K=1")
+    res = long[8][0]
+    log(f"[windowed long] K=8 == K=1 bit for bit ({n} fields); final W "
+        f"{res.final_window_slots}, frontier trajectory of "
+        f"{len(res.gc_frontiers)} ending at {int(res.gc_frontiers[-1])}")
+    long_ms = long[8][1]
+    del long, res
 
     sim = SimConfig(n_msgs=SHAPE[2], steps=steps_crash, window=4, phi=32,
                     window_slots="auto", chunk_steps=CHUNK)
-    run, crash_wall = _full_run("windowed crash 0.3", sim,
-                                FailureScenario.crash_fraction(19, 19, 0.3,
-                                                               seed=2))
+    run, run_m = _full_run("windowed crash 0.3", sim,
+                           FailureScenario.crash_fraction(19, 19, 0.3,
+                                                          seed=2))
     res = run.result
     n = _assert_same(res, dense_crash, "windowed crash vs dense crash",
                      window=False)
@@ -1057,82 +1265,219 @@ def windowed_phase(dense_crash, steps_crash: int):
         f"{any(e.dense_migration for e in events)}; "
         f"final W {res.final_window_slots}; frontier trajectory of "
         f"{len(res.gc_frontiers)} ending at {int(res.gc_frontiers[-1])}")
-    total, no_lost = _launches()
+    total, no_lost, _ = run_m.launches
     launches[0] += total - no_lost
     launches[1] += no_lost
-    return (launches, long_wall / STEPS_LONG * 1e3,
-            crash_wall / steps_crash * 1e3)
+    return launches, long_ms, run_m.wall / steps_crash * 1e3
 
 
-def profile_rounds(rounds: int, run_round_ms: float, label: str,
-                   **window) -> None:
-    """Where a full-size round's time goes: torch.profiler over a short
-    run of the crash configuration, planned once beforehand. Device busy
-    share = kernel time per round over the unprofiled wall time per round
-    of the same short run (timed right before it), and over that of the
-    full run of the same engine (``run_round_ms``)."""
+def sweep_phase():
+    """Phase 5s: the full-width sweep of four receiver-side Byzantine ack
+    behaviours inside the quorum budget, as the lanes of one batch.
+    Returns its launch counts."""
+    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
+                                  run_picsou, run_picsou_batch)
+    from repro_torch.core.simulator import retire_safety_stakes_ok
+    cfg = RSMConfig.bft(6)
+    liars = (True,) * 6 + (False,) * 13
+    scenarios = [("failure-free", FailureScenario.none()),
+                 ("byz_ack_low on 0-5", FailureScenario(byz_ack_low=liars)),
+                 ("byz_ack_stale on 0-5",
+                  FailureScenario(byz_ack_stale=liars)),
+                 ("byz_ack_advance +1 on 0-5", FailureScenario(
+                     byz_ack_advance=(1,) * 6 + (0,) * 13))]
+    fails = [f for _, f in scenarios]
+    sim = SimConfig(n_msgs=SWEEP_M, steps=SWEEP_STEPS, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK, superchunk=8)
+    sweeps = {}
+    plan_s = _plan_s(sim, fails)
+    for k in (8, 1):
+        run_m = Measured(lambda: run_picsou_batch(
+            cfg, cfg, dataclasses.replace(sim, superchunk=k), fails), plan_s)
+        runs = run_m.result
+        spec = runs[0].spec
+        what = f"sweep K={k}"
+        _check_launches(spec, what)
+        _check_dispatches(spec, run_m.counts, what,
+                          runs[0].result.window_growth_events)
+        log(f"[{what}] B={len(runs)} lanes, BFT f=6 <-> f=6, M={SWEEP_M}, "
+            f"steps={SWEEP_STEPS}, W={spec.window_slots}: "
+            + run_m.line(SWEEP_STEPS, SWEEP_M * len(runs))
+            + f" (planning, {plan_s:.3f} s, taken off)"
+            + f"; captures {run_m.counts[2]}, dispatches "
+            f"{run_m.counts[0]}")
+        sweeps[k] = (runs, run_m)
+    for b, ((name, _), r8, r1) in enumerate(zip(scenarios, sweeps[8][0],
+                                                sweeps[1][0])):
+        if not (r8.all_delivered and r8.all_quacked):
+            raise AssertionError(f"sweep lane {b} ({name}): not all "
+                                 f"delivered and quacked")
+        n = _assert_same(r8.result, r1.result, f"sweep lane {b}: K=8 vs "
+                         f"K=1")
+        res = r8.result
+        log(f"[sweep] lane {b} ({name}, retire_safety_stakes_ok "
+            f"{retire_safety_stakes_ok(r8.spec)}): K=8 == K=1 ({n} fields);"
+            f" completion round {res.completion_step()}, delivery round "
+            f"{res.delivery_step()}, cross copies/msg "
+            f"{r8.cross_copies_per_msg}, resends {res.total_resends()}, "
+            f"growth {growth(res)}, frontier ends at "
+            f"{int(res.gc_frontiers[-1])}")
+    single = run_picsou(cfg, cfg, sim, fails[1]).result
+    lane = sweeps[8][0][1].result
+    n = _assert_same(single, lane, "sweep lane 1 vs its single run",
+                     window=single.window_growth_events
+                     == lane.window_growth_events)
+    log(f"[sweep] lane 1 == a single run_picsou of its scenario at K=8 "
+        f"({n} fields)")
+    total, no_lost, _ = sweeps[8][1].launches
+    return [total - no_lost, no_lost]
+
+
+class DispatchWindow:
+    """Marks dispatches ``first`` .. ``last`` (counted from 0) of one run:
+    synchronises and stamps the host clock as dispatch ``first`` starts
+    and as dispatch ``last`` starts (and starts / stops ``prof`` there),
+    records each dispatch's first round, and inside the window the host
+    time of each replay (``Programs.run``), each drain start and each
+    drain wait, and how many replays were launched while an earlier
+    drain was still unwaited (the launch-ahead path). Pick a window that
+    holds replays only: a program is captured at its first dispatch."""
+
+    def __init__(self, first: int, last: int, prof=None):
+        self.first, self.last, self.prof = first, last, prof
+        self.rounds = []
+        self.stamps = {}
+        self.host = {"replay": [], "drain start": [], "drain wait": []}
+        self.undrained = 0
+        self.ahead = 0
+
+    def __enter__(self):
+        from repro_torch.core import graphs, snapshot
+        self._saved = (graphs.Programs.run, snapshot.PinnedDrain.start,
+                       snapshot.PinnedDrain.wait)
+        run, start, wait = self._saved
+
+        def inside():
+            return self.first in self.stamps and self.last not in \
+                self.stamps
+
+        def timed(name, fn):
+            def wrapped(*args):
+                self.undrained += {"drain start": 1,
+                                   "drain wait": -1}.get(name, 0)
+                if not inside():
+                    return fn(*args)
+                if name == "replay" and self.undrained:
+                    self.ahead += 1
+                t0 = time.perf_counter()
+                out = fn(*args)
+                self.host[name].append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        def marked(prog, key, body, t):
+            n = len(self.rounds)
+            self.rounds.append(t)
+            if n in (self.first, self.last):
+                torch.cuda.synchronize()
+                self.stamps[n] = time.perf_counter()
+                if self.prof is not None:
+                    (self.prof.start if n == self.first
+                     else self.prof.stop)()
+            return timed("replay", run)(prog, key, body, t)
+
+        graphs.Programs.run = marked
+        snapshot.PinnedDrain.start = timed("drain start", start)
+        snapshot.PinnedDrain.wait = timed("drain wait", wait)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import graphs, snapshot
+        (graphs.Programs.run, snapshot.PinnedDrain.start,
+         snapshot.PinnedDrain.wait) = self._saved
+
+    def window_rounds(self) -> int:
+        return self.rounds[self.last] - self.rounds[self.first]
+
+    def wall_per_round(self) -> float:
+        return ((self.stamps[self.last] - self.stamps[self.first])
+                / self.window_rounds())
+
+
+def profile_window(label: str, spec, first: int, last: int,
+                   run_round_ms: float, w: int = 0) -> None:
+    """Where a graphed round's time goes: dispatches ``first`` ..
+    ``last`` of a run of ``spec``, timed unprofiled, then under
+    torch.profiler started and stopped at the same dispatches. Device busy
+    share = kernel time per round over the unprofiled window's wall per
+    round, and over that of the engine's full run (``run_round_ms``);
+    the host µs of each replay, drain start and drain wait in the
+    window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
-                                  build_spec, run_simulation)
-    cfg = RSMConfig.bft(6)
-    sim = SimConfig(n_msgs=SHAPE[2], steps=rounds, window=4, phi=32,
-                    **window)
-    spec = build_spec(cfg, cfg, sim,
-                      FailureScenario.crash_fraction(19, 19, 0.3, seed=2))
-    run_simulation(spec)                                # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_simulation(spec)
-    plain_ms = (time.perf_counter() - t0) / rounds * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    from repro_torch.core import run_simulation
+    with DispatchWindow(first, last) as plain:
         run_simulation(spec)
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    plain_ms = plain.wall_per_round() * 1e3
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with DispatchWindow(first, last, prof) as under:
+        run_simulation(spec)
+    rounds = under.window_rounds()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
+    host = ", ".join(
+        f"{name} {np.mean(v) * 1e6:.1f} us x {len(v)}"
+        for name, v in plain.host.items() if v)
+    log(f"[profile {label}] dispatches {first}-{last - 1}, rounds "
+        f"{plain.rounds[first]}-{plain.rounds[last] - 1}, W="
+        f"{w or spec.window_slots or spec.m}, K={spec.superchunk}: "
+        f"{plain_ms:.4f} ms/round unprofiled ({1e3 / plain_ms:.1f} "
+        f"rounds/s); host per call in the window: {host}; replays "
+        f"launched ahead of an earlier drain: {plain.ahead} of "
+        f"{len(plain.host['replay'])}")
     if busy_ms <= 0:
         log(f"[profile {label}] device time per round: not measured (the "
             f"profiler saw no kernels)")
         return
-    log(f"[profile {label}] {rounds} full-size crash-config rounds, W="
-        f"{spec.window_slots or spec.m}: {busy_ms:.4f} ms/round of kernels "
-        f"on the device, {sum(e.count for e in kernels) / rounds:.1f} "
-        f"kernels/round; {wall / rounds * 1e3:.4f} ms/round wall under the "
-        f"profiler, {plain_ms:.4f} ms/round without it (device busy "
-        f"{busy_ms / plain_ms:.1%}), {run_round_ms:.4f} ms/round over the "
-        f"engine's full run (device busy {busy_ms / run_round_ms:.1%})")
+    log(f"[profile {label}] {busy_ms:.4f} ms/round of kernels on the "
+        f"device, {sum(e.count for e in kernels) / rounds:.1f} "
+        f"kernels/round; {under.wall_per_round() * 1e3:.4f} ms/round under "
+        f"the profiler; device busy {busy_ms / plain_ms:.1%} of the "
+        f"unprofiled window, {busy_ms / run_round_ms:.1%} of the engine's "
+        f"full run ({run_round_ms:.4f} ms/round)")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"[profile {label}]   {e.self_device_time_total / rounds:9.2f} "
             f"us/round {e.count / rounds:5.1f} launches/round  "
             f"{e.key[:90]}")
-    host = sorted((e for e in events if e.device_type != DeviceType.CUDA),
-                  key=lambda e: -e.self_cpu_time_total)[:6]
-    for e in host:
-        log(f"[profile {label}]   host {e.self_cpu_time_total / rounds:9.2f}"
-            f" us/round {e.count / rounds:6.1f} calls/round  {e.key[:70]}")
 
 
-def profile_after_migration(run_round_ms: float, chunks: int = 2) -> None:
-    """The windowed crash run past its dense migration, where it spends
-    almost all its rounds: ``chunks`` chunks right after the one that
-    migrated (rounds, rotation at W = M and drain), timed unprofiled and
-    then under torch.profiler. The window runs from the start of its first
-    chunk to the start of the next one after it, marked by wrapping the
-    engine's chunk function. Device busy share = kernel time per round
-    over the unprofiled window's wall per round, and over the full
-    windowed crash run's (``run_round_ms``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_phase(dense_round_ms: float, long_round_ms: float,
+                  w_crash_ms: float) -> None:
+    """Phase 6: the graphed dense round, the graphed windowed round at
+    K = 8 and the windowed crash run past its dense migration, each over
+    a window of replays; then the chunk-boundary cost."""
     from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
-                                  build_spec, run_simulation, simulator)
+                                  build_spec, run_simulation)
     cfg = RSMConfig.bft(6)
     crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
+    spec = build_spec(cfg, cfg, SimConfig(
+        n_msgs=SHAPE[2], steps=12 * 32 + 1, window=4, phi=32), crash)
+    profile_window("dense", spec, 1, 12, dense_round_ms)
+    spec = build_spec(cfg, cfg, SimConfig(
+        n_msgs=SHAPE[2], steps=3 * 8 * CHUNK + 1, window=4, phi=32,
+        window_slots="auto", chunk_steps=CHUNK, superchunk=8))
+    profile_window("windowed K=8", spec, 1, 3, long_round_ms)
+    # the launch-ahead bound holds only when the window covers two
+    # spans' dispatches (2 x 8 x 32 rounds x 76 messages) above the
+    # frontier the host saw before the last drain: at W = 65,536 (on a
+    # stream of 131,072), not at 6,016
+    spec = build_spec(cfg, cfg, SimConfig(
+        n_msgs=SHAPE[2] * 2, steps=4 * 8 * CHUNK + 1, window=4, phi=32,
+        window_slots=SHAPE[2], chunk_steps=CHUNK, superchunk=8))
+    profile_window("windowed K=8, W=65536", spec, 1, 4, long_round_ms)
 
     def plan(steps):
         return build_spec(cfg, cfg, SimConfig(
@@ -1143,87 +1488,47 @@ def profile_after_migration(run_round_ms: float, chunks: int = 2) -> None:
     migrated = [e.step for e in events if e.dense_migration]
     if not migrated:
         raise AssertionError("profile: the crash run did not migrate")
-    first = migrated[0] // CHUNK + 1          # the chunk after migrating
-    spec = plan((first + chunks + 1) * CHUNK)
-    chunk = simulator._chunk
-    window = {}
-
-    def measure(prof):
-        calls = [0]
-
-        def marked(*args, **kwargs):
-            if calls[0] in (first, first + chunks):
-                torch.cuda.synchronize()
-                window[calls[0]] = time.perf_counter()
-                if prof is not None:
-                    (prof.start if calls[0] == first else prof.stop)()
-            calls[0] += 1
-            return chunk(*args, **kwargs)
-
-        simulator._chunk = marked
-        try:
-            run_simulation(spec)
-        finally:
-            simulator._chunk = chunk
-        return (window[first + chunks] - window[first]) / (chunks * CHUNK)
-
-    plain_ms = measure(None) * 1e3
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    wall_ms = measure(prof) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    rounds = chunks * CHUNK
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
-    if busy_ms <= 0:
-        log("[profile windowed after migration] device time per round: not "
-            "measured (the profiler saw no kernels)")
-        return
-    log(f"[profile windowed after migration] rounds {first * CHUNK}-"
-        f"{(first + chunks) * CHUNK - 1} (migrated at round {migrated[0]}; "
-        f"W={spec.m}, {chunks} chunks with rotation and drain): "
-        f"{busy_ms:.4f} ms/round of kernels on the device, "
-        f"{sum(e.count for e in kernels) / rounds:.1f} kernels/round; "
-        f"{wall_ms:.4f} ms/round wall under the profiler, {plain_ms:.4f} "
-        f"ms/round without it (device busy {busy_ms / plain_ms:.1%}), "
-        f"{run_round_ms:.4f} ms/round over the windowed crash run (device "
-        f"busy {busy_ms / run_round_ms:.1%})")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    for e in top:
-        log(f"[profile windowed after migration]   "
-            f"{e.self_device_time_total / rounds:9.2f} us/round "
-            f"{e.count / rounds:5.1f} launches/round  {e.key[:80]}")
+    # the run migrates at the boundary of the chunk whose last round the
+    # event names, and captures its first span at W = M there; the window
+    # is the two spans after that one
+    t_mig = migrated[0] - CHUNK + 1
+    spec = plan(t_mig + 4 * 8 * CHUNK + 1)
+    with DispatchWindow(0, 0) as probe:
+        run_simulation(spec)
+    first = len(probe.rounds) - probe.rounds[::-1].index(t_mig)
+    profile_window("windowed after migration", spec, first, first + 2,
+                   w_crash_ms, w=spec.m)
+    chunk_cost()
 
 
-def chunk_cost(rounds: int = 384) -> None:
-    """The host cost of a chunk boundary (frontier, rotation, drain): the
-    failure-free link windowed at W = 6,016 over ``rounds`` rounds with 8,
-    16 and 32 rounds a chunk, each planned beforehand, warmed and timed
-    unprofiled; the slope of wall time over the number of chunks."""
+def chunk_cost(spans: int = 4) -> None:
+    """The cost of a chunk boundary in the graphed engine: the
+    failure-free link windowed at W = 6,016, K = 8, with 8, 16 and 32
+    rounds a chunk; the wall per round over ``spans`` steady spans (a
+    window of replays), and the slope of wall time over the number of
+    chunk boundaries."""
     from repro_torch.core import RSMConfig, SimConfig, build_spec
     from repro_torch.core import run_simulation
     cfg = RSMConfig.bft(6)
-    walls = {}
+    per_round = {}
     for c in (8, 16, 32):
         spec = build_spec(cfg, cfg, SimConfig(
-            n_msgs=SHAPE[2], steps=rounds, window=4, phi=32,
-            window_slots=WIN_SHAPE[3], chunk_steps=c))
-        run_simulation(spec)                            # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run_simulation(spec)
-        walls[c] = time.perf_counter() - t0
+            n_msgs=SHAPE[2], steps=(spans + 2) * 8 * c + 1, window=4,
+            phi=32, window_slots=WIN_SHAPE[3], chunk_steps=c))
+        with DispatchWindow(1, 1 + spans) as win:
+            res = run_simulation(spec)
         if res.window_growth_events:
             raise AssertionError(f"chunk cost: the window grew at {c} "
                                  f"rounds a chunk")
-    n = {c: -(-rounds // c) for c in walls}
-    per_chunk = (walls[8] - walls[32]) / (n[8] - n[32])
-    log(f"[profile chunks] {rounds} failure-free rounds at W="
-        f"{WIN_SHAPE[3]}: "
-        + ", ".join(f"{c}-round chunks {walls[c] * 1e3 / rounds:.4f} "
-                    f"ms/round" for c in walls)
-        + f"; a chunk boundary costs {per_chunk * 1e3:.3f} ms of host time "
-        f"(slope from {n[32]} to {n[8]} chunks), a round without it "
-        f"{(walls[32] - n[32] * per_chunk) * 1e3 / rounds:.4f} ms")
+        per_round[c] = win.wall_per_round()
+    # wall/round = a + b / c: b is the cost of one chunk boundary
+    b = (per_round[8] - per_round[32]) / (1 / 8 - 1 / 32)
+    log(f"[profile chunks] K=8, W={WIN_SHAPE[3]}, {spans} steady spans: "
+        + ", ".join(f"{c}-round chunks {v * 1e3:.4f} ms/round"
+                    for c, v in per_round.items())
+        + f"; a chunk boundary costs {b * 1e3:.3f} ms (slope from 32- to "
+        f"8-round chunks), a round without it "
+        f"{(per_round[32] - b / 32) * 1e3:.4f} ms")
 
 
 def build_all() -> dict:
@@ -1348,20 +1653,25 @@ def main() -> int:
     w_launches, w_round_ms, w_crash_ms = windowed_phase(
         full["crash 0.3"][0], STEPS_CRASH)
     log(f"[time] windowed phase {time.perf_counter() - t0:.1f} s")
-    del full["failure-free"]
-    # the windowed profile's full-run comparator is the long stream, at
-    # W = 6,016 for its whole run (the crash run migrates to dense)
-    profile_rounds(60, full["crash 0.3"][1], "dense")
-    profile_rounds(60, w_round_ms, "windowed", window_slots="auto",
-                   chunk_steps=CHUNK)
-    profile_after_migration(w_crash_ms)
-    chunk_cost()
+    t0 = time.perf_counter()
+    s_launches = sweep_phase()
+    log(f"[time] sweep phase {time.perf_counter() - t0:.1f} s")
+    dense_ms = full["crash 0.3"][1]
+    del full
+    # the windowed profile's full-run comparator is the long stream at
+    # K = 8, at W = 6,016 for its whole run (the crash run migrates)
+    t0 = time.perf_counter()
+    profile_phase(dense_ms, w_round_ms, w_crash_ms)
+    log(f"[time] profile phase {time.perf_counter() - t0:.1f} s")
 
-    # the main path's launches: the full-size runs, dense and windowed
+    # the main path's launches: the full-size runs, dense and windowed,
+    # and the sweep
     rows = [("quack_scan", dict(kern[True], launches=launches[0]
-                                + w_launches[0], library_ms=None)),
+                                + w_launches[0] + s_launches[0],
+                                library_ms=None)),
             ("quack_scan_no_lost", dict(kern[False], launches=launches[1]
-                                        + w_launches[1], library_ms=None)),
+                                        + w_launches[1] + s_launches[1],
+                                        library_ms=None)),
             ("flash_attention", api["flash_attention"]),
             ("flash_attention_f32", api["flash_attention_f32"]),
             ("rwkv6_chunked", api["rwkv6_chunked"])]

@@ -152,8 +152,8 @@ def gc_frontier_device(*, base, t_next, m: int,
     eff_full = (eff | ~relevant[:, :, None]).all(dim=1)
     ok = (quacked_everywhere & orig_sent & no_pending_bcast & eff_full
           & (abs_idx < m))
-    # cumprod of int32 gives int64; the prefix is at most W
-    return torch.cumprod(ok.to(_I32), dim=-1).sum(dim=-1).to(_I32)
+    # the prefix is at most W: the scan and the sum stay in int32
+    return torch.cumprod(ok, dim=-1, dtype=_I32).sum(dim=-1, dtype=_I32)
 
 
 def grow_window(w: int, base: int, need: int, m: int) -> Optional[int]:

@@ -1,0 +1,164 @@
+"""Captured programs: the simulator's chunk, superchunk and dense-block
+bodies as CUDA graphs.
+
+The JAX package compiles each of these bodies once per run with
+``jax.jit`` and dispatches it as one program. Here a body is plain
+PyTorch, ``body(state, t0) -> (new_state, outputs)``, and a run keeps its
+programs in a ``Programs`` set, keyed as the JAX package keys its per-run
+programs (window width, rounds a chunk, chunks a span, rotation):
+
+- on a CUDA device each body is captured once into a
+  ``torch.cuda.CUDAGraph`` over static buffers: the carried state, the
+  round number ``t0`` and whatever else the body reads (kept alive by the
+  set). The captured body ends by copying its new state into the state
+  buffers, so replays chain with no host work; a dispatch costs the host
+  one ``fill_`` of ``t0`` and one graph launch instead of one launch per
+  kernel. There is no fallback: a capture that fails raises.
+- on the CPU the same body runs eagerly, and nothing is captured.
+
+A capture executes nothing, so the body is first run once on clones of
+the state (its warm-up: it loads the kernels' modules and allocates the
+matrix products' workspaces at these shapes) and the result thrown away.
+Warm-ups and captures run on one side stream per device: cuBLAS keeps a
+workspace per stream for the life of the process.
+The graphs of one set share one memory pool; ``release`` drops them
+(with their pool) before the state changes layout, when the window grows
+or migrates to the dense layout.
+
+Launch accounting: the kernel wrapper's counters
+(``kernels.quack_scan.quack_scan.launches`` / ``launches_no_lost``) move
+only while Python runs the wrapper. A capture records the launches its
+body makes (and restores the counters the warm-up and the capture moved);
+every replay adds them, and ``discount`` takes back those of chunk bodies
+whose results a span's overflow guard discarded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Hashable, List, Tuple
+
+import torch
+
+from ..kernels.quack_scan import quack_scan as _quack_scan
+
+__all__ = ["Programs", "capture_count", "replay_count"]
+
+# the kernel wrapper's launch counters a replay must move
+_COUNTERS = ("launches", "launches_no_lost")
+_CAPTURES = [0]
+_REPLAYS = [0]
+_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def capture_count() -> int:
+    """Programs captured into CUDA graphs so far."""
+    return _CAPTURES[0]
+
+
+def replay_count() -> int:
+    """CUDA graph replays so far (one per dispatch on a CUDA device)."""
+    return _REPLAYS[0]
+
+
+@dataclasses.dataclass(eq=False)
+class _Captured:
+    key: Hashable
+    graph: torch.cuda.CUDAGraph
+    outputs: List[torch.Tensor]       # written by every replay
+    launches: Dict[str, int]          # kernel launches a replay makes
+
+
+def _counts() -> Dict[str, int]:
+    return {name: getattr(_quack_scan, name) for name in _COUNTERS}
+
+
+def _add_counts(delta: Dict[str, int], times: int = 1) -> None:
+    for name, n in delta.items():
+        setattr(_quack_scan, name, getattr(_quack_scan, name) + n * times)
+
+
+Body = Callable[[tuple, torch.Tensor], Tuple[tuple, List[torch.Tensor]]]
+
+
+class Programs:
+    """The programs of one run at one state layout.
+
+    ``state`` is the carried state (a ``NamedTuple`` of tensors); on a
+    CUDA device its tensors are the static buffers every replay reads and
+    rewrites, and they must not alias each other. ``keep`` holds the other
+    tensors the bodies read (failure arrays, the run's constants): a
+    graph reads them by address, so they live as long as the set.
+    """
+
+    def __init__(self, state, device: torch.device, keep=()):
+        self.state = state
+        self._keep = keep
+        self._cuda = device.type == "cuda"
+        self._progs: Dict[Hashable, _Captured] = {}
+        if self._cuda:
+            self._t0 = torch.zeros((), dtype=torch.int32, device=device)
+            self._pool = torch.cuda.graph_pool_handle()
+            if device not in _STREAMS:
+                _STREAMS[device] = torch.cuda.Stream(device)
+            self._stream = _STREAMS[device]
+
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._progs
+
+    def run(self, key: Hashable, body: Body, t: int) -> List[torch.Tensor]:
+        """Run program ``key`` (``body``, captured at its first use on a
+        CUDA device) from round ``t``; the new state replaces ``state``.
+        Returns the body's outputs. On a CUDA device these are the
+        graph's own output buffers, rewritten by the next replay: read
+        them (in stream order) before the next ``run``."""
+        if not self._cuda:
+            self._progs.setdefault(key, None)
+            self.state, outputs = body(self.state,
+                                       torch.tensor(t, dtype=torch.int32))
+            return outputs
+        prog = self._progs.get(key)
+        if prog is None:
+            prog = self._progs[key] = self._capture(key, body)
+        self._t0.fill_(t)
+        prog.graph.replay()
+        _REPLAYS[0] += 1
+        _add_counts(prog.launches)
+        return prog.outputs
+
+    def discount(self, key: Hashable, chunks: int, of: int) -> None:
+        """Take back the kernel launches of ``chunks`` of the ``of`` equal
+        chunk bodies of program ``key``'s last replay, whose results its
+        overflow guard discarded; they count on
+        ``quack_scan.launches_skipped`` instead."""
+        if not self._cuda or not chunks:
+            return
+        per_chunk = {name: n // of
+                     for name, n in self._progs[key].launches.items()}
+        _add_counts(per_chunk, -chunks)
+        _quack_scan.launches_skipped += per_chunk["launches"] * chunks
+
+    def release(self) -> None:
+        """Drop every captured graph (and so its memory pool)."""
+        self._progs.clear()
+
+    def _capture(self, key: Hashable, body: Body) -> _Captured:
+        before = _counts()
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            body(type(self.state)(*(x.clone() for x in self.state)),
+                 self._t0)                       # warm-up, thrown away
+        torch.cuda.current_stream().wait_stream(stream)
+        warm = _counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+            new, outputs = body(self.state, self._t0)
+            for dst, src in zip(self.state, new):
+                if src is not dst:
+                    dst.copy_(src)
+        launches = {name: n - warm[name] for name, n in _counts().items()}
+        _add_counts({name: before[name] - n
+                     for name, n in _counts().items()})
+        _CAPTURES[0] += 1
+        return _Captured(key, graph, list(outputs), launches)

@@ -17,15 +17,19 @@ RSM (n_r - 1 copies); ATA needs no intra-RSM broadcast.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Sequence
+
+import numpy as np
 
 from .network import NodeLoad, Resources, throughput_from_loads
-from .simulator import SimResult, SimSpec, build_spec, run_simulation
+from .simulator import (SimResult, SimSpec, build_spec, run_simulation,
+                        run_simulation_batch)
 from .types import (COUNTER_BYTES, MAC_BYTES, SEQNO_BYTES, FailureScenario,
                     NetworkModel, RSMConfig, SimConfig)
 
 __all__ = ["picsou_loads", "ata_loads", "ost_loads", "analytic_throughput",
-           "C3BRun", "run_picsou"]
+           "staked_picsou_throughput", "C3BRun", "run_picsou",
+           "run_picsou_batch"]
 
 
 def _ack_bytes(cfg: RSMConfig, backlog: int = 0) -> float:
@@ -127,6 +131,34 @@ def analytic_throughput(protocol: str, sender_cfg: RSMConfig,
     return throughput_from_loads(res, net)
 
 
+def staked_picsou_throughput(stakes, nic_Bps,
+                             net: NetworkModel) -> Dict[str, float]:
+    """Stake-aware PICSOU capacity (§6.3 scenarios).
+
+    DSS apportions send/receive work proportional to stake, so replica i
+    carries share_i = stake_i / total of the per-message load on both the
+    send and the receive/broadcast side; the system rate is bound by the
+    most-loaded replica relative to its own NIC:
+
+      sender bound_i   = NIC_i / (share_i * s * n)        (its sends)
+      receiver bound_i = NIC_i / (share_i * s * (n - 1))  (its broadcasts)
+    """
+    stakes = np.asarray(stakes, dtype=np.float64)
+    nic = np.broadcast_to(np.asarray(nic_Bps, dtype=np.float64),
+                          stakes.shape)
+    share = stakes / stakes.sum()
+    n = len(stakes)
+    s = net.msg_bytes
+    send_bound = nic / np.maximum(share * s * n, 1e-12)
+    recv_bound = nic / np.maximum(share * s * max(n - 1, 1), 1e-12)
+    tput = float(min(send_bound.min(), recv_bound.min()))
+    # also bounded by the balanced-case receiver ingress NIC/s
+    tput = min(tput, float(nic.min()) / s * n / max(n - 1, 1))
+    return {"throughput_msgs_per_s": tput,
+            "binding_replica": int(np.argmin(np.minimum(send_bound,
+                                                        recv_bound)))}
+
+
 @dataclasses.dataclass
 class C3BRun:
     """A PICSOU simulator run + derived protocol-level statistics."""
@@ -169,3 +201,17 @@ def run_picsou(sender_cfg: RSMConfig, recv_cfg: RSMConfig,
     """Plan and run one PICSOU link on ``device`` (default: CUDA)."""
     spec = build_spec(sender_cfg, recv_cfg, sim, failures)
     return C3BRun(result=run_simulation(spec, device=device), spec=spec)
+
+
+def run_picsou_batch(sender_cfg: RSMConfig, recv_cfg: RSMConfig,
+                     sim: SimConfig, scenarios: Sequence[FailureScenario],
+                     device=None) -> List[C3BRun]:
+    """Run a failure-scenario sweep of one link as the lanes of one run
+    (``run_simulation_batch``) on ``device`` (default: CUDA).
+
+    All scenarios share the schedules and thresholds of (sender_cfg,
+    recv_cfg, sim); each lane is bit-identical to its own ``run_picsou``.
+    """
+    specs = [build_spec(sender_cfg, recv_cfg, sim, f) for f in scenarios]
+    return [C3BRun(result=r, spec=s) for s, r in
+            zip(specs, run_simulation_batch(specs, device=device))]

@@ -14,7 +14,8 @@ array. Everything below ``base`` counts as held, so the absolute
 cumulative ack is ``base +`` the in-window prefix. ``base == 0`` with a
 full-width array is the dense semantics. ``base`` may be a python int, a
 () int32 tensor, or one int32 base per lane: a (B,) tensor beside
-(B, n_r, W) bitmaps. All offset arithmetic is int32.
+(B, n_r, W) bitmaps. All offset arithmetic is int32, and so are the
+scans (counts stay below W), as the JAX package's int32 scans are.
 """
 
 from __future__ import annotations
@@ -82,7 +83,8 @@ def cumulative_ack(received: torch.Tensor, base=0) -> torch.Tensor:
     ``base`` is the absolute index of column 0 (window invariant:
     everything below it counts as received).
     """
-    prefix = torch.cumprod(received.to(_I32), dim=-1).sum(dim=-1)
+    prefix = torch.cumprod(received, dim=-1, dtype=_I32).sum(dim=-1,
+                                                              dtype=_I32)
     return (_rows(base) + prefix).to(_I32)
 
 
@@ -105,7 +107,7 @@ def missing_below_horizon(received: torch.Tensor, phi: int,
                       rows).to(_I32)
     missing = (~received) & (idx < top[..., None])
     # keep only the first `phi` missing entries per row
-    rank = torch.cumsum(missing.to(_I32), dim=-1)
+    rank = torch.cumsum(missing, dim=-1, dtype=_I32)
     return missing & (rank <= phi)
 
 
@@ -129,7 +131,7 @@ def claim_bitmask(received: torch.Tensor, phi: int, base=0, total=None):
     cum = cumulative_ack(received, base)
     # horizon: everything strictly below the (phi+1)-th missing index is
     # described; (phi+1)-th missing position per row, or `total`
-    rank_all = torch.cumsum((~received).to(_I32), dim=-1)
+    rank_all = torch.cumsum(~received, dim=-1, dtype=_I32)
     over = rank_all > phi
     first_over = torch.argmax(over.to(_I32), dim=-1).to(_I32)
     horizon = torch.where(over.any(dim=-1), rows + first_over,

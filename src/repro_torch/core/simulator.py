@@ -16,11 +16,13 @@ hand-written CUDA kernel on the card. The round number ``t`` and the
 bases are device tensors, so nothing in a round or a chunk waits for the
 host.
 
-Two engines run the same step:
+Two engines run the same step, each over one lane per spec
+(``run_simulation_batch``; ``run_simulation`` is one lane):
 
-- **dense** (``window_slots == 0``): one lane, the window is the whole
-  stream ``[0, M)`` and never rotates; the loop never syncs with the
-  host, and the result comes back in one device→host copy at the end.
+- **dense** (``window_slots == 0``): the window is the whole stream
+  ``[0, M)`` and never rotates; the rounds run as 32-round programs, the
+  loop never syncs with the host, and the result comes back in one
+  device→host copy at the end.
 - **windowed** (``window_slots > 0``): per-message state lives in a
   sliding window of W columns covering absolute sequence numbers
   ``[base, base + W)``. The run is split into chunks of
@@ -33,9 +35,15 @@ Two engines run the same step:
   state is O(W), independent of M. A window too narrow for the in-flight
   set grows 2x (``adaptive_window``), or the state migrates into the
   dense layout when the width would reach M; ``adaptive_window=False``
-  raises ``ValueError`` instead. This engine runs one chunk per dispatch
-  (superchunk K = 1) whatever ``spec.superchunk`` says: the reference
-  gives identical outputs for every K.
+  raises ``ValueError`` instead. Up to K = ``spec.superchunk`` chunks
+  fuse into one dispatch (``_superchunk``), with an overflow guard on
+  the device that stops a span where K = 1 would have grown the window;
+  a dispatch's drain overlaps the next dispatch. Every K gives the same
+  outputs, as in the reference.
+
+On a CUDA device every chunk, superchunk and dense block is a captured
+CUDA graph, replayed once a dispatch (``graphs.Programs``); on the CPU
+the same functions run eagerly.
 
 Semantics of a round ``t`` (matching Figure 3/4/5/6 of the paper):
   1. intra-RSM broadcasts queued at t-1 land;
@@ -64,20 +72,24 @@ import torch
 
 from . import scheduler as sched
 from .gc import gc_frontier_device, grow_window, resolve_window_slots
+from .graphs import Programs
 from .quack import (claim_bitmask, missing_below_horizon,
                     stake_quorum_bitmap, weighted_quorum_prefix)
 from .snapshot import WINDOW_FILLS as _WINDOW_FILLS
-from .snapshot import device_state, host_state, pad_window, to_host
+from .snapshot import (PinnedDrain, device_state, host_state, pad_window,
+                       to_host)
 from .snapshot import window_shapes as _window_shapes
 from .types import (FailureScenario, RSMConfig, SimConfig,
                     lcm_scale_factors)
 
 __all__ = ["SimSpec", "SimResult", "SimState", "StepMetrics", "FailArrays",
            "ChunkQueue", "WindowGrowthEvent",
-           "build_spec", "run_simulation", "spec_failures",
+           "build_spec", "run_simulation", "run_simulation_batch",
+           "require_uniform_batch", "spec_failures",
            "spec_with_failures", "spec_with_quorum",
            "retire_safety_stakes_ok", "spec_to_arrays", "spec_from_arrays",
-           "state_from_numpy"]
+           "state_from_numpy", "chunk_trace_count", "chunk_dispatch_count",
+           "host_sync_count"]
 
 _NEVER_STEP = 2 ** 30     # orig_step pad for window slots beyond the stream
 _BIG = 2 ** 30
@@ -122,7 +134,7 @@ class SimSpec:
     window_slots: int = 0             # 0 => dense (full-M) state
     chunk_steps: int = 0              # rounds per chunk (windowed)
     adaptive_window: bool = True      # grow W / dense-fallback on overflow
-    superchunk: int = 8               # carried; the port runs K = 1
+    superchunk: int = 8               # chunks a windowed dispatch fuses
     debug_checks: bool = False        # per-drain checks (windowed)
     use_pallas_quack: bool = False    # carried across; see SimConfig
     collect_metrics: bool = False     # metrics fabric (not ported yet)
@@ -533,15 +545,26 @@ def _fail_arrays(specs: Sequence[SimSpec], device) -> FailArrays:
     )
 
 
-def _protocol_step(spec: SimSpec, fail: FailArrays, sched_w, base, w: int):
+def _rotation_seqs(spec: SimSpec, device) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The retransmit rotation sequences (rs_seq, rr_seq) as int32
+    tensors on ``device``."""
+    return (torch.tensor(spec.rs_seq, dtype=_I32, device=device),
+            torch.tensor(spec.rr_seq, dtype=_I32, device=device))
+
+
+def _protocol_step(spec: SimSpec, fail: FailArrays, seqs, sched_w, base,
+                   w: int):
     """Per-round transition of B lanes over ``w`` window columns.
 
+    ``seqs`` are the rotation sequences (``_rotation_seqs``);
     ``sched_w`` is the (orig_sender, orig_recv, orig_step) schedule of
     each lane's window, (B, w) int32 each; ``base`` the (B,) int32 window
     bases. All sequence-number arithmetic is absolute. Returns
     ``step(state, t)`` with ``t`` a () int32 tensor, giving
     ``(new_state, metrics)`` where ``metrics`` is a (B, 6) int32 tensor in
-    ``StepMetrics`` order. Nothing in a step waits for the device.
+    ``StepMetrics`` order. Nothing here copies from the host or waits for
+    the device, so a chunk of steps can be captured into a CUDA graph.
     """
     n_s, n_r, m = spec.n_s, spec.n_r, spec.m
     phi = spec.phi
@@ -551,8 +574,7 @@ def _protocol_step(spec: SimSpec, fail: FailArrays, sched_w, base, w: int):
 
     stakes_s = fail.stakes_s
     stakes_r = fail.stakes_r
-    rs_seq = torch.tensor(spec.rs_seq, dtype=_I32, device=dev)
-    rr_seq = torch.tensor(spec.rr_seq, dtype=_I32, device=dev)
+    rs_seq, rr_seq = seqs
     ls, lr = len(spec.rs_seq), len(spec.rr_seq)
 
     abs_idx = base[:, None] + torch.arange(w, dtype=_I32, device=dev)
@@ -759,13 +781,6 @@ def _init_state(spec: SimSpec, w: int, device, lanes: int = 1) -> SimState:
     )
 
 
-def _sched_arrays(spec: SimSpec, device):
-    def t(x):
-        return torch.tensor(x, dtype=_I32, device=device)
-
-    return t(spec.orig_sender), t(spec.orig_recv), t(spec.orig_step)
-
-
 def _padded_sched(spec: SimSpec, w: int, device):
     """The schedule padded by ``w`` never-sent slots, so that a window at
     any base <= M reads inside it."""
@@ -788,28 +803,77 @@ def _sched_window(sched_p, base: torch.Tensor, w: int):
     return tuple(a[ix] for a in sched_p)
 
 
-# ------------------------------------------------------------ dense run
-def _run_dense(spec: SimSpec, device) -> Tuple[SimState, torch.Tensor]:
-    """Dense full-stream run: one lane, window = [0, M), no rotation.
+class _Plan(NamedTuple):
+    """A run's constant device tensors at one window width, built before
+    any program runs (a captured program cannot copy from the host)."""
 
-    Returns the final state and the (1, steps, 6) int32 metrics, both on
-    ``device``; the loop never waits for the device.
+    sched: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # padded by w
+    seqs: Tuple[torch.Tensor, torch.Tensor]        # rs_seq, rr_seq
+    # (max(steps, 1),) int32: ``_max_msg_by_round``, the guard's needs
+    dispatched_by: torch.Tensor
+
+
+def _plan(spec: SimSpec, w: int, device) -> _Plan:
+    return _Plan(_padded_sched(spec, w, device), _rotation_seqs(spec, device),
+                 torch.tensor(_max_msg_by_round(spec), dtype=_I32,
+                              device=device))
+
+
+# ------------------------------------------------------------ dense run
+DENSE_BLOCK = 32    # rounds a dense program runs (plus one shorter tail)
+
+
+def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
+    """Dense full-stream runs, one lane per spec: window = [0, M), no
+    rotation.
+
+    The rounds run as programs of ``DENSE_BLOCK`` rounds (and one tail
+    program for the rest): a captured CUDA graph replayed once a block on
+    a CUDA device (``graphs.Programs``), the same block eagerly on the
+    CPU. This is the port's counterpart of the JAX package's one compiled
+    ``lax.scan`` over the run. Each block's round metrics are copied
+    into one device tensor; the run never waits for the device until
+    the result comes back in one device->host copy at the end.
     """
-    fail = _fail_arrays([spec], device)
-    state = _init_state(spec, spec.m, device)
-    sched_w = tuple(a[None] for a in _sched_arrays(spec, device))
-    step = _protocol_step(spec, fail, sched_w, state.base, spec.m)
-    ts = torch.arange(spec.steps, dtype=_I32, device=device)
-    per_round: List[torch.Tensor] = []
-    for i in range(spec.steps):
-        state, ms = step(state, ts[i])
-        per_round.append(ms)
-    if per_round:
-        metrics = torch.stack(per_round, dim=1)
-    else:
-        metrics = torch.zeros((1, 0, len(StepMetrics._fields)), dtype=_I32,
-                              device=device)
-    return state, metrics
+    spec0 = specs[0]
+    n_b, m, steps = len(specs), spec0.m, spec0.steps
+    fail = _fail_arrays(specs, device)
+    plan = _plan(spec0, m, device)
+    progs = Programs(_init_state(spec0, m, device, n_b), device,
+                     keep=(fail, plan))
+    metrics = torch.zeros((n_b, steps, len(StepMetrics._fields)),
+                          dtype=_I32, device=device)
+
+    def block(c):
+        def body(state, t0):
+            state, ms = _rounds(spec0, fail, plan, state, t0, c, m)
+            return state, [ms]
+        return body
+
+    for t in range(0, steps, DENSE_BLOCK):
+        c = min(DENSE_BLOCK, steps - t)
+        (ms,) = progs.run(("dense", c), block(c), t)
+        metrics[:, t:t + c].copy_(ms)
+    final = progs.state
+    progs.release()
+    quack_time, deliver_time, retry, recv_has, ms = to_host(
+        [final.quack_time, final.deliver_time, final.retry, final.recv_has,
+         metrics])
+    out = []
+    for b, spec in enumerate(specs):
+        ss = _dense_send_step(spec)
+        out.append(SimResult(
+            spec=spec,
+            metrics=StepMetrics(*(np.ascontiguousarray(ms[b, :, i])
+                                  for i in range(ms.shape[2]))),
+            quack_time=quack_time[b], deliver_time=deliver_time[b],
+            retry=retry[b], recv_has=recv_has[b],
+            gc_frontiers=np.zeros(1, dtype=np.int64),
+            final_window_slots=spec.m,
+            send_step=ss,
+            delivery_latency=_latency_from(ss, deliver_time[b]),
+        ))
+    return out
 
 
 def _resolve_device(device) -> torch.device:
@@ -866,10 +930,26 @@ def _rotate_device(s: SimState, f: torch.Tensor, w: int) -> SimState:
         retired_delivered=(s.retired_delivered + retired_deliv).to(_I32))
 
 
-def _chunk(spec: SimSpec, fail: FailArrays, sched_p, state: SimState,
-           ts: torch.Tensor, w: int, rotate: bool):
-    """One windowed chunk: the rounds ``ts`` ((c,) int32 on the device),
-    then, when ``rotate``, the GC frontier and the ring rotation.
+def _rounds(spec: SimSpec, fail: FailArrays, plan: _Plan, state: SimState,
+            t0: torch.Tensor, c: int, w: int):
+    """``c`` protocol rounds from round ``t0`` (a () int32 tensor) on each
+    lane's window at its base. Returns ``(state, metrics (B, c, 6)
+    int32)``."""
+    base0 = state.base
+    step = _protocol_step(spec, fail, plan.seqs,
+                          _sched_window(plan.sched, base0, w), base0, w)
+    ts = t0 + torch.arange(c, dtype=_I32, device=base0.device)
+    per_round = []
+    for i in range(c):
+        state, ms = step(state, ts[i])
+        per_round.append(ms)
+    return state, torch.stack(per_round, dim=1)
+
+
+def _chunk(spec: SimSpec, fail: FailArrays, plan: _Plan, state: SimState,
+           t0: torch.Tensor, c: int, w: int, rotate: bool):
+    """One windowed chunk: ``c`` rounds from ``t0``, then, when
+    ``rotate``, the GC frontier and the ring rotation.
 
     Returns ``(state, metrics (B, c, 6) int32, ChunkQueue)``; the queue
     holds the pre-rotation outputs and each lane's retired count (0 for
@@ -877,19 +957,13 @@ def _chunk(spec: SimSpec, fail: FailArrays, sched_p, state: SimState,
     with no host sync.
     """
     base0 = state.base
-    step = _protocol_step(spec, fail, _sched_window(sched_p, base0, w),
-                          base0, w)
-    per_round = []
-    for i in range(ts.shape[0]):
-        state, ms = step(state, ts[i])
-        per_round.append(ms)
-    ms = torch.stack(per_round, dim=1)
+    state, ms = _rounds(spec, fail, plan, state, t0, c, w)
     if not rotate:
         return state, ms, ChunkQueue(
             state.quack_time, state.deliver_time, state.retry,
             state.recv_has, base0, torch.zeros_like(base0))
     f = gc_frontier_device(
-        base=base0, t_next=ts[-1] + 1, m=spec.m,
+        base=base0, t_next=t0 + c, m=spec.m,
         known=state.known, bcast_q=state.bcast_q,
         recv_has=state.recv_has, ack_floor=state.ack_floor,
         stakes_r=fail.stakes_r, quack_thresh=fail.quack_thresh,
@@ -898,6 +972,85 @@ def _chunk(spec: SimSpec, fail: FailArrays, sched_p, state: SimState,
     queue = ChunkQueue(state.quack_time, state.deliver_time, state.retry,
                        state.recv_has, base0, f)
     return _rotate_device(state, f, w), ms, queue
+
+
+def _or_zero(ok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` where ``ok`` (a () bool tensor), else zeros (False)."""
+    return torch.where(ok, x, False if x.dtype == torch.bool else 0)
+
+
+def _superchunk(spec: SimSpec, fail: FailArrays, plan: _Plan,
+                state: SimState, t0: torch.Tensor, w: int, c: int, k: int,
+                rotate: bool):
+    """``k`` chunk bodies of ``c`` rounds from round ``t0`` in one program:
+    the JAX package's ``_compiled_batch_superchunk``, and with ``k = 1``
+    its single chunk.
+
+    Before inner chunk ``i`` runs, the overflow guard tests each lane's
+    exact device base against ``needs[i]`` = the highest message
+    dispatched by the chunk's last round (``plan.dispatched_by``, capped
+    by the lane's commit floor): ``min(need_i, floor - 1) - base < w`` on
+    every lane, AND-ed with the previous chunk's flag. The reference
+    skips a failed chunk with a ``lax.cond``; a CUDA graph cannot branch
+    on the device, so here every chunk body runs and its results are
+    selected with ``torch.where(ok, new, old)``: the state stays as it
+    was, and the chunk emits zero metrics and a zero queue that carries
+    the lane's base, as the reference's untaken branch does. That is
+    exact, and costs device work only on a span that overflows.
+
+    Returns ``(state, metrics (k, B, c, 6), ChunkQueue with a leading
+    k axis, oks (k,) bool)``; the host folds the chunks whose flag is
+    set, in order, and rewinds to the first one that is not.
+    """
+    dev = state.base.device
+    at = t0 + c * torch.arange(1, k + 1, dtype=_I32, device=dev) - 1
+    needs = plan.dispatched_by[at.long()]                      # (k,)
+    floor = fail.commit_floor - 1                              # (B,)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    ms_k, queues, oks = [], [], []
+    for i in range(k):
+        over = torch.minimum(needs[i], floor) - state.base
+        ok = ok & (over < w).all()
+        new, ms, queue = _chunk(spec, fail, plan, state, t0 + i * c, c, w,
+                                rotate)
+        state = SimState(*(torch.where(ok, a, b)
+                           for a, b in zip(new, state)))
+        ms_k.append(_or_zero(ok, ms))
+        queues.append(queue._replace(**{
+            name: _or_zero(ok, getattr(queue, name))
+            for name in ChunkQueue._fields if name != "base"}))
+        oks.append(ok)
+    return (state, torch.stack(ms_k),
+            ChunkQueue(*(torch.stack([getattr(q, name) for q in queues])
+                         for name in ChunkQueue._fields)),
+            torch.stack(oks))
+
+
+# The windowed engine's counters, the JAX package's contract: a *trace*
+# is one capture of a chunk or superchunk program (its first use in a
+# run, on the CPU); a *dispatch* one graph replay on CUDA, or one call of
+# the program on the CPU; a *host sync* one wait for a drain, a final
+# flush or a dense migration. A run of C chunks at superchunk K that never
+# grows its window issues at most ceil(C / K) + 2 dispatches, and host
+# syncs <= dispatches + 2 (+ 1 per dense migration).
+_CHUNK_TRACES = [0]
+_CHUNK_DISPATCHES = [0]
+_HOST_SYNCS = [0]
+
+
+def chunk_trace_count() -> int:
+    """How many windowed chunk programs were captured (CPU: first used)."""
+    return _CHUNK_TRACES[0]
+
+
+def chunk_dispatch_count() -> int:
+    """Dispatches issued by the windowed engine so far."""
+    return _CHUNK_DISPATCHES[0]
+
+
+def host_sync_count() -> int:
+    """Times the windowed engine's host loop blocked on device results."""
+    return _HOST_SYNCS[0]
 
 
 # ------------------------------------------------ growth and migration
@@ -1022,45 +1175,56 @@ def _concat_metrics(n_b: int, metric_parts) -> StepMetrics:
 
 
 # ------------------------------------------------------- windowed loop
-def _run_windowed(spec: SimSpec, device) -> SimResult:
-    """Single windowed run == one lane of the windowed loop."""
-    return _run_windowed_batch([spec], device)[0]
-
-
 def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
-    """The windowed loop over lanes that share a shape (one per spec).
+    """The pipelined windowed loop over lanes that share a shape (one per
+    spec): the JAX package's ``_run_windowed_batch_impl``.
 
-    One dispatch per chunk: ``chunk_steps`` rounds, then each lane's GC
-    frontier and ring rotation on the device (``_chunk``). The host then
-    drains the chunk's ``ChunkQueue`` and round metrics in one
-    device->host copy and folds the retired columns into the (B, ..., M)
-    output mirrors. Before each chunk the host checks, per lane against
-    its own base, that the window holds every message dispatched by the
-    chunk's last round; on overflow the window grows 2x for all lanes, or
-    the state migrates to the dense layout (``_migrate_dense_batch``),
-    and each decision is recorded as a ``WindowGrowthEvent``. The final
-    chunk does not rotate; a last copy flushes the live window.
+    Up to K = ``superchunk`` full rotating chunks fuse into one program
+    (``_superchunk``: ``chunk_steps`` rounds, each lane's GC frontier and
+    ring rotation, K times, with a K-deep ``ChunkQueue`` and K-deep round
+    metrics). On a CUDA device a program is captured once per (width,
+    rounds a chunk, chunks, rotation) and replayed (``graphs.Programs``);
+    on the CPU the same function runs eagerly. A span is
+    ``k = min(K, (steps - t - 1) // chunk_steps)`` chunks; the final chunk
+    runs alone and does not rotate. After a dispatch the host starts its
+    drain (``snapshot.PinnedDrain``: queue, metrics and guard flags into
+    pinned buffers), then folds the *previous* dispatch's drain while
+    this one computes: at most one dispatch stays undrained. The drain
+    folds the K inner chunks in order into the (B, ..., M) output mirrors
+    and rewinds ``t`` to the first chunk whose in-graph overflow guard
+    failed.
 
-    Superchunk K = 1 whatever ``spec.superchunk`` says: the reference
-    guarantees outputs, metrics, frontier trajectories and growth events
-    identical for every K, so K only changes how many chunks a dispatch
-    fuses. Commit floors are held at M (a standalone link); the
-    dispatch-round mirror ``send_step`` follows them as the reference's
-    does.
+    Before each span the host checks, per lane against its own base,
+    that the window holds every message dispatched by the first chunk's
+    last round; on overflow the window grows 2x for all lanes, or the
+    state migrates to the dense layout (``_migrate_dense_batch``), after
+    a full drain, with each decision recorded as a
+    ``WindowGrowthEvent``; the old width's programs are dropped first.
+    The next dispatch is launched ahead of the drain only when a
+    conservative bound (no frontier advance over the whole span, from
+    the host's possibly pre-drain bases) proves the guard cannot fire.
+    So every K gives the K = 1 loop's outputs, metrics, frontier
+    trajectories and growth events bit for bit.
 
-    With ``debug_checks`` each drain checks that the host's base mirror
-    tracks the device rotation and, for lanes whose adversary stakes keep
+    Commit floors are held at M (a standalone link), so every message
+    dispatches at its schedule round. With ``debug_checks`` each drained
+    chunk checks that the host's base mirror tracks the device rotation
+    and, for lanes whose adversary stakes keep
     ``retire_safety_stakes_ok``, that every retired slot is held by at
     least one receiver replica (GC safety).
     """
     spec0 = specs[0]
     n_b = len(specs)
     n_s, n_r, m = spec0.n_s, spec0.n_r, spec0.m
+    steps = spec0.steps
     c_full = max(spec0.chunk_steps, 1)
+    K = max(spec0.superchunk, 1)
     w = spec0.window_slots
     fail = _fail_arrays(specs, device)
-    state = _init_state(spec0, w, device, n_b)
-    sched_p = _padded_sched(spec0, w, device)
+    plan = _plan(spec0, w, device)
+    progs = Programs(_init_state(spec0, w, device, n_b), device,
+                     keep=(fail, plan))
+    drains = PinnedDrain(device)
 
     out_quack = np.full((n_b, n_s, m), -1, dtype=np.int32)
     out_deliver = np.full((n_b, m), -1, dtype=np.int32)
@@ -1069,93 +1233,126 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
     outs = (out_quack, out_deliver, out_retry, out_recv)
     bases = np.zeros(n_b, dtype=np.int64)
     bases_hist = [bases.copy()]
-    floors = np.full(n_b, m, dtype=np.int64)
-    # per-message dispatch-round mirror: filled as floors open, feeds
-    # SimResult.send_step / delivery_latency
-    send_step = np.full((n_b, m), -1, dtype=np.int64)
-    open_floor = np.zeros(n_b, dtype=np.int64)
-    ostep = np.asarray(spec0.orig_step, dtype=np.int64)
     dispatched_by = _max_msg_by_round(spec0)
     metric_parts: List[StepMetrics] = []
     growth_events: List[WindowGrowthEvent] = []
     debug = spec0.debug_checks
     retire_check = np.array([retire_safety_stakes_ok(s) for s in specs])
-
+    pending: List[dict] = []      # dispatched, not yet drained (<= 1)
     t = 0
-    while t < spec0.steps:
-        c = min(c_full, spec0.steps - t)
-        # dispatch-round mirror: floors that opened since the last
-        # boundary dispatch their messages at max(schedule round, now)
-        for b in np.nonzero(floors > open_floor)[0]:
-            ks = np.arange(open_floor[b], floors[b])
-            send_step[b, ks] = np.maximum(ostep[ks], t)
-            open_floor[b] = floors[b]
+
+    def drain_one(ent: dict) -> None:
+        nonlocal bases, t
+        ms, qq, qd, qr, qh, qbase, qcount, oks = drains.wait(ent["handle"])
+        _HOST_SYNCS[0] += 1
+        k, c = ent["k"], ent["c"]
+        executed = int(oks.sum())
+        if executed < k:
+            t = ent["t0"] + executed * c
+            progs.discount(ent["key"], k - executed, k)
+        for i in range(executed):
+            metric_parts.append(StepMetrics(*(
+                ms[i, :, :, j].copy() for j in range(ms.shape[3]))))
+            if not ent["rotate"]:
+                continue               # final chunk: nothing retired
+            if debug and not (qbase[i] == bases).all():
+                raise RuntimeError(
+                    "window base mirror diverged from device rotation")
+            if debug and retire_check.any():
+                held = qh[i].any(axis=1)                        # (B, W)
+                ret = (np.arange(held.shape[-1])[None, :]
+                       < qcount[i][:, None])
+                bad = ret & ~held & retire_check[:, None]
+                if bad.any():
+                    b, kk = np.argwhere(bad)[0]
+                    raise RuntimeError(
+                        f"GC safety violation: lane {b} retired window "
+                        f"slot {kk} (abs seqno {int(bases[b]) + int(kk)})"
+                        f" that no replica has received — the frontier "
+                        f"outran an undelivered message under an "
+                        f"adversary whose stake budget should make that "
+                        f"impossible")
+            bases = _scatter_retired(bases, qcount[i],
+                                     (qq[i], qd[i], qr[i], qh[i]), outs)
+            bases_hist.append(bases.copy())
+
+    def drain_all() -> None:
+        while pending:
+            drain_one(pending.pop(0))
+
+    def program(c: int, k: int, rotate: bool, w: int, plan: _Plan):
+        def body(state, t0):
+            state, ms, queue, oks = _superchunk(spec0, fail, plan, state,
+                                                t0, w, c, k, rotate)
+            return state, [ms, *queue, oks]
+        return body
+
+    while t < steps:
+        c = min(c_full, steps - t)
         # per-lane overflow check: a lane's window must hold every
-        # message dispatched by the chunk's last round (capped by its
-        # commit floor), measured against its own base
-        need_b = np.minimum(int(dispatched_by[t + c - 1]), floors - 1)
-        over = need_b - bases
+        # message dispatched by the chunk's last round, measured against
+        # its own base; only a potential overflow waits for the drain
+        need = min(int(dispatched_by[t + c - 1]), m - 1)
+        if pending and (need - bases >= w).any():
+            drain_all()
+        over = need - bases
         b_worst = int(over.argmax())
         if over[b_worst] >= w:
-            new_w = _widen_on_overflow(spec0, w, int(bases[b_worst]),
-                                       int(need_b[b_worst]), t + c - 1)
+            drain_all()
+            new_w = _widen_on_overflow(spec0, w, int(bases[b_worst]), need,
+                                       t + c - 1)
             growth_events.append(WindowGrowthEvent(
-                step=t + c - 1, scenario=b_worst,
-                need=int(need_b[b_worst]), old_w=w,
+                step=t + c - 1, scenario=b_worst, need=need, old_w=w,
                 new_w=m if new_w is None else new_w,
                 dense_migration=new_w is None))
+            state = progs.state
+            progs.release()
             if new_w is None:
                 state = _migrate_dense_batch(spec0, state, bases, *outs)
+                _HOST_SYNCS[0] += 1
                 bases[:] = 0
                 w = m
             else:
                 state = pad_window(state, new_w)
                 w = new_w
-            sched_p = _padded_sched(spec0, w, device)
+            plan = _plan(spec0, w, device)
+            progs = Programs(state, device, keep=(fail, plan))
         # the schedule gather reads [base, base + w) of a schedule padded
         # by w: it stays in range while every base is at most M
         if (bases > m).any():
             raise RuntimeError(f"window bases {bases} past the stream end "
                                f"{m}")
-        last = t + c >= spec0.steps
-        ts = torch.arange(t, t + c, dtype=_I32, device=device)
-        state, ms, queue = _chunk(spec0, fail, sched_p, state, ts, w,
-                                  rotate=not last)
-        # the drain: one device->host copy for the queue and the metrics
-        qq, qd, qr, qh, qbase, qcount, msh = to_host(
-            [queue.quack_time, queue.deliver_time, queue.retry,
-             queue.recv_has, queue.base, queue.count, ms])
-        metric_parts.append(StepMetrics(*(msh[:, :, i] for i in
-                                          range(msh.shape[2]))))
-        t += c
-        if last:
-            break                  # final chunk: nothing retired
-        if debug and not (qbase == bases).all():
-            raise RuntimeError(
-                "window base mirror diverged from device rotation")
-        if debug and retire_check.any():
-            held = qh.any(axis=1)                               # (B, W)
-            ret = np.arange(held.shape[-1])[None, :] < qcount[:, None]
-            bad = ret & ~held & retire_check[:, None]
-            if bad.any():
-                b, kk = np.argwhere(bad)[0]
-                raise RuntimeError(
-                    f"GC safety violation: lane {b} retired window "
-                    f"slot {kk} (abs seqno {int(bases[b]) + int(kk)}) "
-                    f"that no replica has received — the frontier "
-                    f"outran an undelivered message under an adversary "
-                    f"whose stake budget should make that impossible")
-        bases = _scatter_retired(bases, qcount, (qq, qd, qr, qh), outs)
-        bases_hist.append(bases.copy())
+        last = t + c >= steps
+        k = 1
+        if not last and c == c_full:
+            k = min(K, (steps - t - 1) // c_full)
+        # launch ahead only when the guard provably cannot fire: no
+        # frontier advance over the whole span, from the host's bases
+        span_need = min(int(dispatched_by[t + k * c - 1]), m - 1)
+        async_ok = K > 1 and bool((span_need - bases < w).all())
+        key = (w, c, k, not last)
+        if key not in progs:
+            _CHUNK_TRACES[0] += 1
+        result = progs.run(key, program(c, k, not last, w, plan), t)
+        _CHUNK_DISPATCHES[0] += 1
+        pending.append(dict(t0=t, k=k, c=c, rotate=not last, key=key,
+                            handle=drains.start(result)))
+        t += k * c
+        while len(pending) > 1:
+            drain_one(pending.pop(0))
+        if not async_ok:
+            drain_all()
 
+    drain_all()
     # final flush: the live window, in one copy
+    final = progs.state
+    progs.release()
     _scatter_retired(bases, np.minimum(w, m - bases).clip(min=0),
-                     to_host([state.quack_time, state.deliver_time,
-                              state.retry, state.recv_has]), outs)
+                     to_host([final.quack_time, final.deliver_time,
+                              final.retry, final.recv_has]), outs)
+    _HOST_SYNCS[0] += 1
 
-    # a dispatch round beyond the run never fired
-    ss_all = np.where((send_step >= 0) & (send_step < spec0.steps),
-                      send_step, -1).astype(np.int32)
+    ss = _dense_send_step(spec0)
     traj = np.stack(bases_hist)                     # (n_boundaries, n_b)
     all_metrics = _concat_metrics(n_b, metric_parts)
     events = tuple(growth_events)
@@ -1169,41 +1366,84 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
         gc_frontiers=traj[:, b].astype(np.int64),
         final_window_slots=w,
         window_growth_events=events,
-        send_step=ss_all[b],
-        delivery_latency=_latency_from(ss_all[b], out_deliver[b]),
+        send_step=ss,
+        delivery_latency=_latency_from(ss, out_deliver[b]),
     ) for b, spec in enumerate(specs)]
 
 
 # ------------------------------------------------------------------ runs
+def _neutral(spec: SimSpec) -> SimSpec:
+    """``spec`` with its per-lane inputs (failure masks, stakes, quorum
+    thresholds) and window config normalised away: what the specs of one
+    batch must share."""
+    n_s, n_r = spec.n_s, spec.n_r
+    return dataclasses.replace(
+        spec,
+        crash_s=(-1,) * n_s, crash_r=(-1,) * n_r,
+        byz_send_drop=(False,) * n_s, byz_recv_drop=(False,) * n_r,
+        byz_ack_advance=(0,) * n_r, byz_ack_low=(False,) * n_r,
+        byz_bcast_partial=(False,) * n_r, bcast_limit=0,
+        byz_equiv_send=(False,) * n_s, byz_hq_advance=(0,) * n_s,
+        byz_ack_stale=(False,) * n_r,
+        drop_pair=((False,) * n_r,) * n_s,
+        stakes_s=(1.0,) * n_s, stakes_r=(1.0,) * n_r,
+        quack_thresh=1.0, dup_thresh=1.0, hq_thresh=1.0,
+        window_slots=0, chunk_steps=0, adaptive_window=True,
+        superchunk=1, debug_checks=False)
+
+
+def require_uniform_batch(specs: Sequence[SimSpec]) -> None:
+    """Raise unless the specs differ only in their failure masks (and
+    stakes and quorum thresholds): the lanes of one run share shapes,
+    schedules and window config."""
+    nspec = _neutral(specs[0])
+    win_key = (specs[0].window_slots, specs[0].chunk_steps,
+               specs[0].adaptive_window, specs[0].superchunk,
+               specs[0].debug_checks)
+    for s in specs[1:]:
+        if (_neutral(s) != nspec
+                or (s.window_slots, s.chunk_steps, s.adaptive_window,
+                    s.superchunk, s.debug_checks)
+                != win_key):
+            raise ValueError("run_simulation_batch: specs differ outside "
+                             "their failure masks; batch members must share "
+                             "shapes, schedules, thresholds and window "
+                             "config (window_slots / chunk_steps / "
+                             "adaptive_window)")
+
+
 def run_simulation(spec: SimSpec, device=None) -> SimResult:
     """Run one spec on ``device`` (default: CUDA; raises if it is absent):
-    windowed when ``spec.window_slots > 0``, else dense.
+    windowed when ``spec.window_slots > 0``, else dense. A run is one
+    lane of ``run_simulation_batch``.
 
     ``collect_metrics`` raises ``NotImplementedError`` (not ported yet).
     """
-    if spec.collect_metrics:
+    return run_simulation_batch([spec], device)[0]
+
+
+def run_simulation_batch(specs: Sequence[SimSpec],
+                         device=None) -> List[SimResult]:
+    """Run many failure scenarios of one shape as the lanes of one run on
+    ``device`` (default: CUDA; raises if it is absent).
+
+    All specs must share every field but their failure masks, stakes and
+    quorum thresholds (``require_uniform_batch``): e.g. ``build_spec``
+    with one ``FailureScenario`` each. Windowed specs run the
+    windowed loop with a window base per lane (O(B * W) device state),
+    dense specs the dense engine; each lane is bit-identical to its own
+    run.
+    """
+    specs = list(specs)
+    if not specs:
+        return []
+    require_uniform_batch(specs)
+    if specs[0].collect_metrics:
         raise NotImplementedError(_METRICS_TODO)
     dev = _resolve_device(device)
-    if spec.window_slots:
-        return _run_windowed(spec, dev)
-    final, metrics = _run_dense(spec, dev)
-    quack_time, deliver_time, retry, recv_has, ms = to_host(
-        [final.quack_time[0], final.deliver_time[0], final.retry[0],
-         final.recv_has[0], metrics[0]])
-    ss = _dense_send_step(spec)
-    return SimResult(
-        spec=spec,
-        metrics=StepMetrics(*(np.ascontiguousarray(ms[:, i])
-                              for i in range(ms.shape[1]))),
-        quack_time=quack_time,
-        deliver_time=deliver_time,
-        retry=retry,
-        recv_has=recv_has,
-        gc_frontiers=np.zeros(1, dtype=np.int64),
-        final_window_slots=spec.m,
-        send_step=ss,
-        delivery_latency=_latency_from(ss, deliver_time),
-    )
+    if specs[0].window_slots:
+        return _run_windowed_batch(specs, dev)
+    return _run_dense_batch(specs, dev)
 
 
 def retire_safety_stakes_ok(spec: SimSpec) -> bool:

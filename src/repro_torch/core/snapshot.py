@@ -8,17 +8,19 @@ the host<->device moves of a whole state tree and the width migration.
 
 Everything here works structurally on ``NamedTuple`` state trees
 (``_fields`` / ``_replace``), so it depends on nothing of the simulator.
+``PinnedDrain`` is the windowed engine's per-dispatch drain, which
+overlaps the device's next dispatch.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["WINDOW_FILLS", "window_shapes", "to_host", "host_state",
-           "device_state", "pad_window"]
+           "device_state", "pad_window", "PinnedDrain"]
 
 # window-indexed SimState fields -> neutral fill for a fresh slot
 WINDOW_FILLS = dict(recv_has=False, bcast_q=False, bcast_done=False,
@@ -34,6 +36,13 @@ def window_shapes(n_s: int, n_r: int, w: int) -> dict:
                 retry=(n_s, w), quack_time=(n_s, w), deliver_time=(w,))
 
 
+def _check_dtypes(tensors: Sequence[torch.Tensor]) -> None:
+    for t in tensors:
+        if t.dtype not in (torch.int32, torch.bool):
+            raise TypeError(f"drains take int32/bool tensors, got "
+                            f"{t.dtype}")
+
+
 def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """Bring int32/bool tensors to numpy in ONE device->host copy
     (flattened into one int32 buffer and split back, dtypes kept).
@@ -41,10 +50,7 @@ def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     Raises ``TypeError`` on any other dtype, which the int32 packing
     would not keep exactly.
     """
-    for t in tensors:
-        if t.dtype not in (torch.int32, torch.bool):
-            raise TypeError(f"to_host packs int32/bool tensors, got "
-                            f"{t.dtype}")
+    _check_dtypes(tensors)
     flat = torch.cat([t.reshape(-1).to(torch.int32)
                       for t in tensors]).cpu().numpy()
     out, at = [], 0
@@ -90,3 +96,57 @@ def pad_window(state, new_w: int):
     return state._replace(
         **{name: pad(getattr(state, name), fill)
            for name, fill in WINDOW_FILLS.items()})
+
+
+class PinnedDrain:
+    """Device->host drains that overlap the device's next work.
+
+    On a CUDA device ``start`` enqueues one non-blocking copy per tensor
+    on the current stream (so behind the program that wrote them and
+    ahead of the next one, which may rewrite them) into one of two pinned
+    host buffers, used in turn, and records an event after the copies;
+    ``wait`` blocks on that event and returns numpy views of the buffer.
+    A buffer is written again two calls of ``start`` later: fold a drain, or
+    copy what it keeps, before starting the one after next. On the CPU
+    the tensors are on the host already: ``wait`` returns their numpy
+    views. int32/bool tensors only (``TypeError`` otherwise).
+    """
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._bufs: List[Optional[torch.Tensor]] = [None, None]
+        self._next = 0
+
+    def start(self, tensors: Sequence[torch.Tensor]):
+        """Start draining ``tensors``; returns the handle ``wait`` takes."""
+        _check_dtypes(tensors)
+        if not self._cuda:
+            return [t.numpy() for t in tensors]
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        buf = self._bufs[self._next]
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._bufs[self._next] = buf
+        self._next ^= 1
+        views: List[Optional[torch.Tensor]] = [None] * len(tensors)
+        at = 0
+        # int32 first, so that every int32 view starts 4-byte aligned
+        for i in sorted(range(len(tensors)),
+                        key=lambda i: -tensors[i].element_size()):
+            t = tensors[i]
+            n = t.numel() * t.element_size()
+            host = buf[at:at + n].view(t.dtype).view(t.shape)
+            host.copy_(t, non_blocking=True)
+            views[i] = host
+            at += n
+        event = torch.cuda.Event()
+        event.record()
+        return event, views
+
+    def wait(self, handle) -> List[np.ndarray]:
+        """Block until a drain has landed; its arrays, dtypes kept."""
+        if not self._cuda:
+            return handle
+        event, views = handle
+        event.synchronize()
+        return [v.numpy() for v in views]

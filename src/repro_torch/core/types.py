@@ -305,9 +305,10 @@ class SimConfig:
     adaptive_window: overflow semantics of the windowed engine: grow W 2x,
                      or migrate to the dense layout once W would reach M
                      (True); raise ``ValueError`` (False).
-    superchunk:      fusion depth K of the JAX package's windowed engine.
-                     Carried so that configs match; this package runs
-                     K = 1, whose outputs are the same for every K.
+    superchunk:      fusion depth K of the windowed engine: up to K
+                     chunks run as one dispatch (one CUDA-graph replay on
+                     a card), drained while the next one computes; the
+                     outputs are the same for every K.
     debug_checks:    per-drain invariant checks of the windowed engine
                      (base mirror, GC safety).
     use_pallas_quack: kept only so that configs carry across from the

@@ -110,6 +110,10 @@ def quack_scan(claims: torch.Tensor, complaints, stakes: torch.Tensor,
     return quacked, lost, prefix
 
 
-# launches of the kernel, all variants / the compute_lost=False variant
+# launches of the kernel, all variants / the compute_lost=False variant;
+# launches_skipped: launches of a captured span's chunk bodies that its
+# overflow guard discarded, taken back from the two others
+# (``core.graphs.Programs.discount``)
 quack_scan.launches = 0
 quack_scan.launches_no_lost = 0
+quack_scan.launches_skipped = 0

@@ -21,12 +21,16 @@ the wgmma kernel in three TF32 passes (``launches_f32``), which is also
 held against its split in plain torch (``ref.mha_split_tf32``).
 """
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import FailureScenario, RSMConfig, SimConfig
+from repro_torch.core import FailureScenario, RSMConfig, SimConfig, graphs
 from repro_torch.core import simulator as tsim
+from repro_torch.core import snapshot
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import \
     flash_attention as cuda_flash_attention
@@ -246,6 +250,161 @@ def test_windowed_cuda_run_matches_cpu_run(name, snd, rcv, simkw, fails):
         assert gpu.window_growth_events
         assert gpu.window_growth_events[-1].dense_migration == (
             name == "dense_fallback")
+
+
+# ------------------------------------------- CUDA graphs (core/graphs.py)
+def _lanes(k=8, **simkw):
+    """Two lanes of one windowed link, and the run's inputs on the card."""
+    kw = dict(n_msgs=128, steps=60, window=1, phi=6, window_slots=32,
+              chunk_steps=4, superchunk=k)
+    kw.update(simkw)
+    specs = [tsim.build_spec(_BFT1, _BFT1, SimConfig(**kw), f)
+             for f in (FailureScenario.none(),
+                       FailureScenario(crash_s=(1, -1, -1, -1)))]
+    dev = torch.device("cuda")
+    w = specs[0].window_slots
+    return (specs[0], tsim._fail_arrays(specs, dev),
+            tsim._plan(specs[0], w, dev),
+            tsim._init_state(specs[0], w, dev, len(specs)), w)
+
+
+@pytest.mark.parametrize("k,rotate", [(1, True), (1, False), (4, True)],
+                         ids=["chunk", "final_chunk", "superchunk"])
+def test_graphed_program_equals_eager_on_cuda(k, rotate):
+    """Three replays of a captured chunk / superchunk program at B = 2 ==
+    the same function called eagerly on the card, bit for bit (state,
+    metrics, queue, guard flags), and the replays' launches counted."""
+    _need_cuda()
+    spec, fail, plan, state, w = _lanes()
+    c = 4
+
+    def body(st, t0):
+        st, ms, queue, oks = tsim._superchunk(spec, fail, plan, st, t0, w,
+                                              c, k, rotate)
+        return st, [ms, *queue, oks]
+
+    progs = graphs.Programs(tsim.SimState(*(x.clone() for x in state)),
+                            torch.device("cuda"), keep=(fail, plan))
+    eager = state
+    before = cuda_quack_scan.launches
+    for t in (0, k * c, 2 * k * c):
+        got = [x.clone() for x in progs.run("p", body, t)]
+        eager, want = body(eager, torch.tensor(t, dtype=torch.int32,
+                                               device="cuda"))
+        for a, b in zip(got + list(progs.state), want + list(eager)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    # eager calls launch 3 x, replays add what the capture recorded
+    assert (cuda_quack_scan.launches - before
+            == 2 * 3 * k * (2 * c + rotate))
+    progs.release()
+
+
+def test_quack_scan_launches_inside_a_captured_graph():
+    _need_cuda()
+    claims, comps, stakes = (x.cuda() for x in _inputs(19, 19, 6016, 5))
+    thr = torch.tensor(7.0, device="cuda")
+    static = [claims.clone(), comps.clone()]
+    ops.quack_scan(*static, stakes, thr, thr)              # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ops.quack_scan(*static, stakes, thr, thr)
+    for seed in (6, 7):
+        c2, x2, _ = (x.cuda() for x in _inputs(19, 19, 6016, seed))
+        static[0].copy_(c2)
+        static[1].copy_(x2)
+        g.replay()
+        want = quack_reference(c2, x2, stakes, thr, thr)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+def test_launch_accounting_with_a_cut_span():
+    """A K = 8 run whose window grows inside a span: the guard cuts the
+    span, the cut chunks' launches count on ``launches_skipped``, and the
+    contract stays 2 x rounds + one per rotating chunk; == the CPU run."""
+    _need_cuda()
+    spec = tsim.build_spec(_BFT1, _BFT1, SimConfig(
+        n_msgs=128, steps=128 // 4 + 80, window=1, phi=6, window_slots=16,
+        chunk_steps=8, superchunk=8), FailureScenario(**_STALL))
+    before = (cuda_quack_scan.launches, cuda_quack_scan.launches_no_lost,
+              cuda_quack_scan.launches_skipped)
+    gpu = tsim.run_simulation(spec)
+    total, no_lost, skipped = (a - b for a, b in zip(
+        (cuda_quack_scan.launches, cuda_quack_scan.launches_no_lost,
+         cuda_quack_scan.launches_skipped), before))
+    rotating = -(-spec.steps // spec.chunk_steps) - 1
+    assert gpu.window_growth_events and skipped > 0
+    assert total == 2 * spec.steps + rotating
+    assert no_lost == spec.steps + rotating
+    cpu = tsim.run_simulation(spec, device="cpu")
+    for f in ("quack_time", "deliver_time", "retry", "recv_has",
+              "gc_frontiers"):
+        assert np.array_equal(getattr(gpu, f), getattr(cpu, f)), f
+    assert gpu.window_growth_events == cpu.window_growth_events
+
+
+def test_steady_loop_issues_no_sync(monkeypatch):
+    """Under ``set_sync_debug_mode("error")`` a replay of a captured
+    program and the start of its drain (what the loop does between two
+    drains) issue no synchronisation."""
+    _need_cuda()
+    steady = [0]
+    run, start = graphs.Programs.run, snapshot.PinnedDrain.start
+
+    def strict(fn, when):
+        def wrapped(self, *args):
+            if not when(self, *args):
+                return fn(self, *args)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(self, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return wrapped
+
+    def replay(self, key, body, t):
+        steady[0] += key in self
+        return key in self
+
+    monkeypatch.setattr(graphs.Programs, "run", strict(run, replay))
+    monkeypatch.setattr(snapshot.PinnedDrain, "start",
+                        strict(start, lambda self, tensors: True))
+    spec = tsim.build_spec(_BFT1, _BFT1, SimConfig(
+        n_msgs=512, steps=512 // 4 + 40, window=1, phi=6, window_slots=256,
+        chunk_steps=4, superchunk=2))
+    res = tsim.run_simulation(spec)
+    assert steady[0] > 10 and res.delivery_step() >= 0
+
+
+def test_growth_frees_the_old_widths_graphs(monkeypatch):
+    """When the window grows (and migrates to dense), the old width's
+    graphs are dropped before the new width's are captured, and a run
+    leaves no graph alive."""
+    _need_cuda()
+    captured, seen = [], []
+    capture = graphs.Programs._capture
+
+    def live():
+        gc.collect()
+        return [key for key, ref in captured if ref() is not None]
+
+    def spy(self, key, body):
+        seen.append((key, live()))
+        prog = capture(self, key, body)
+        captured.append((key, weakref.ref(prog)))
+        return prog
+
+    monkeypatch.setattr(graphs.Programs, "_capture", spy)
+    spec = tsim.build_spec(_BFT1, _BFT1, SimConfig(
+        n_msgs=64, steps=200, window=1, phi=6, window_slots=16,
+        chunk_steps=8), FailureScenario(**_STALL, crash_r=(-1, 8, -1, -1)))
+    res = tsim.run_simulation(spec)
+    widths = {key[0] for key, _ in seen}
+    assert len(widths) >= 2 and res.window_growth_events[-1].dense_migration
+    for key, alive in seen:
+        assert all(other[0] == key[0] for other in alive), (key, alive)
+    assert live() == []
 
 
 # (B, H, KV, Sq, Skv, D, causal, window, block): the JAX test grid, the

@@ -172,9 +172,11 @@ def test_step_from_carried_jax_state():
     dev = torch.device("cpu")
     state = tsim.state_from_numpy([np.asarray(x)[None] for x in state_np],
                                   dev)
-    sched_w = tuple(a[None] for a in tsim._sched_arrays(tspec, dev))
+    sched_w = tsim._sched_window(tsim._padded_sched(tspec, tspec.m, dev),
+                                 state.base, tspec.m)
     tstep = tsim._protocol_step(tspec, tsim._fail_arrays([tspec], dev),
-                                sched_w, state.base, tspec.m)
+                                tsim._rotation_seqs(tspec, dev), sched_w,
+                                state.base, tspec.m)
     tnext, tms = tstep(state, torch.tensor(k, dtype=torch.int32))
     for f in tsim.SimState._fields:
         _same(getattr(tnext, f)[0].numpy(), getattr(jnext, f), f)

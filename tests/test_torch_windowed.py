@@ -190,8 +190,8 @@ def test_long_stream_constant_state():
 
 
 def test_superchunk_setting_does_not_change_the_run():
-    """The port runs K = 1 for every ``superchunk``; the JAX package's
-    K = 8 fuses chunks and gives the same result."""
+    """The port's K = 8 fuses chunks and gives its K = 1 run's result,
+    and the JAX package's K = 8 run's."""
     name, snd, rcv, simkw, fails = FIXTURES[3]          # byzantine_recv
     j8 = jsim.build_spec(snd, rcv, JSimConfig(**simkw, superchunk=8), fails)
     j1 = dataclasses.replace(j8, superchunk=1)
