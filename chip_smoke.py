@@ -43,7 +43,12 @@ Phases, each of which raises on failure (exit code non-zero):
    (K = 1: one dispatch a chunk; without growth at most ceil(C / K) + 2;
    host syncs at most dispatches + 2, plus one per dense migration;
    every dispatch a CUDA-graph replay; dense: one replay per 32-round
-   block).
+   block). Every single run and every batch combination runs again with
+   ``collect_metrics`` on, on CUDA and on the CPU: the outputs must equal
+   the metrics-off run's, every ``ObsMetrics`` field the CPU run's, each
+   lane's histogram the numpy histogram of its ``delivery_latency``, and
+   dispatches, host syncs, captures, replays and kernel launches must be
+   those of the metrics-off run.
 5. Full-size phase: BFT f = 6 <-> f = 6 (n = 19, the paper's largest
    §6.1 network), M = 65,536, window 4, phi 32, failure-free and with
    ``crash_fraction(19, 19, 0.3, seed=2)``, through ``run_picsou``. Both
@@ -74,6 +79,19 @@ Phases, each of which raises on failure (exit code non-zero):
    and quacked and equal the same sweep at K = 1 bit for bit, lane 1 its
    single ``run_picsou``; both sweeps within the launch and dispatch
    contracts, with the numbers of phase 5.
+5m. The metrics fabric at full width: ``python -m repro_torch.obs
+   --selftest`` on the card, then with ``collect_metrics`` on, the long
+   stream at K = 8 under a span tracer, the windowed crash run (it grows
+   and migrates to dense), the four-lane sweep at K = 8 and the 900-round
+   failure-free dense run. Each must equal its metrics-off run of phases
+   5, 5w and 5s in every output, metric and window field; per lane the
+   histogram must equal the numpy histogram of ``delivery_latency``,
+   ``quack_events`` the count of ``quack_time >= 0``, ``resend_total``
+   the sum of the resends, ``uncounted`` 0; and dispatches, host syncs,
+   captures, replays and kernel launches must equal the metrics-off
+   run's. Each logs its rounds/s and peak memory against the metrics-off
+   run's; the long stream logs the tracer's span counts and its drain
+   overlap ratio.
 6. Where a graphed round's time goes: torch.profiler over a window of
    replays (started and stopped at chosen dispatches, after every
    capture) of the dense crash configuration, of the failure-free
@@ -85,7 +103,9 @@ Phases, each of which raises on failure (exit code non-zero):
    full run, the host time of each replay, drain start and drain wait,
    and the replays launched ahead of an earlier drain. Then the cost of a chunk boundary: the failure-free link at
    K = 8 with 8, 16 and 32 rounds a chunk, the wall per round over four
-   steady spans each.
+   steady spans each. The dense and windowed K = 8 windows run again with
+   ``collect_metrics`` on (the kernels the fabric adds a round), and each
+   window logs ``quack_scan``'s in-round (L2-warm) µs a round.
 7. Kernel-API phase (run right after phase 3, so that a fault in a
    kernel stops the script before the long runs): ``kernels.ops.
    flash_attention`` and ``kernels.ops.rwkv6_chunked`` at full model
@@ -981,6 +1001,77 @@ def _assert_same(a, b, what: str, window: bool = True):
     return len(fields) + len(a.metrics._fields)
 
 
+OBS_FIELDS = ("latency_hist", "occupancy_hwm", "gc_lag_hwm", "quack_events",
+              "loss_events", "resend_total", "uncounted", "per_chunk_hist")
+
+
+def _obs_checks(res, what: str) -> str:
+    """One lane's metrics against its own outputs: the histogram ==
+    the numpy histogram of ``delivery_latency``, ``quack_events`` == the
+    (sender, message) pairs quacked, ``resend_total`` == the resends of
+    its round metrics, nothing uncounted. Returns a summary."""
+    from repro_torch.obs.metrics import latency_histogram_np
+    o = res.obs
+    checks = {
+        "latency_hist": np.array_equal(
+            o.latency_hist, latency_histogram_np(res.delivery_latency)),
+        "quack_events": o.quack_events == int((res.quack_time >= 0).sum()),
+        "resend_total": o.resend_total == int(res.metrics.resends.sum()),
+        "uncounted": o.uncounted == 0}
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{what}: metrics disagree with the outputs "
+                             f"in {bad}")
+    p = o.percentiles()
+    return (f"{o.total_counted()} counted, p50/p95/p99 {p['p50']}/"
+            f"{p['p95']}/{p['p99']} rounds, occupancy hwm "
+            f"{o.occupancy_hwm}, gc lag hwm {o.gc_lag_hwm}, quack events "
+            f"{o.quack_events}, loss events {o.loss_events}, resends "
+            f"{o.resend_total}")
+
+
+def _same_obs(a, b, what: str) -> None:
+    """Two ``ObsMetrics`` field by field."""
+    for f in OBS_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (
+                x is not None and not np.array_equal(x, y)):
+            raise AssertionError(f"{what}: the metrics differ in {f}")
+
+
+def _counters():
+    """Engine counters and ``quack_scan``'s launch counters so far."""
+    return _engine_counts() + _launches()
+
+
+def _metrics_twin(what: str, run, off_runs, off_moved) -> None:
+    """Phase 4, metrics on: ``run(sim_change, device)`` (a list of
+    ``C3BRun``) with ``collect_metrics`` on, on CUDA and on the CPU. The
+    CUDA run's outputs == the metrics-off CUDA runs ``off_runs``, its
+    metrics == the CPU run's and its own outputs', and it moves every
+    counter as the metrics-off run moved them (``off_moved``)."""
+    torch.cuda.synchronize()
+    before = _counters()
+    gpu = run("cuda")
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_counters(), before))
+    cpu = run("cpu")
+    for b, (g, c, o) in enumerate(zip(gpu, cpu, off_runs)):
+        lane = f"{what} metrics on, lane {b}"
+        _assert_same(g.result, o.result, f"{lane} vs metrics off")
+        _assert_same(g.result, c.result, f"{lane} cuda vs cpu")
+        _same_obs(g.result.obs, c.result.obs, f"{lane} cuda vs cpu")
+        _obs_checks(g.result, lane)
+    if moved != off_moved:
+        raise AssertionError(f"{what}: metrics on moved the counters "
+                             f"{moved}, metrics off {off_moved}")
+    log(f"[path] {what} with collect_metrics: == metrics off, cuda == cpu "
+        f"in every ObsMetrics field of {len(gpu)} lanes, each == its "
+        f"outputs; counters (dispatches, host syncs, captures, replays, "
+        f"launches, without the loss quorum, skipped) {moved} == metrics "
+        f"off; lane 0: {_obs_checks(gpu[0].result, what)}")
+
+
 class Measured:
     """Runs ``fn`` as one measured run: launch counts at 0 and peak memory
     reset just before it; afterwards its wall time, peak device memory
@@ -1062,16 +1153,20 @@ def _path_batch(cfg, scenarios):
     out = {}
     for name, sim in sims.items():
         torch.cuda.synchronize()
-        before = _engine_counts()
         _reset_launches()
+        before = _counters()
         gpu = run_picsou_batch(cfg, cfg, sim, scenarios)
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(_counters(), before))
         _check_launches(gpu[0].spec, f"path batch {name}")
-        _check_dispatches(gpu[0].spec, tuple(
-            a - b for a, b in zip(_engine_counts(), before)),
-            f"path batch {name}", gpu[0].result.window_growth_events)
+        _check_dispatches(gpu[0].spec, moved[:4], f"path batch {name}",
+                          gpu[0].result.window_growth_events)
         cpu = run_picsou_batch(cfg, cfg, sim, scenarios, device="cpu")
         for b, (g, c) in enumerate(zip(gpu, cpu)):
             _assert_same(g.result, c.result, f"path batch {name} lane {b}")
+        on = dataclasses.replace(sim, collect_metrics=True)
+        _metrics_twin(f"path batch {name}", lambda device: run_picsou_batch(
+            cfg, cfg, on, scenarios, device=device), gpu, moved)
         out[name] = gpu
     n = 0
     for b, f in enumerate(scenarios):
@@ -1117,7 +1212,10 @@ def path_phase():
     for name, sim, f in runs:
         torch.cuda.synchronize()
         _reset_launches()
+        before = _counters()
         gpu = run_picsou(cfg, cfg, sim, f)
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(_counters(), before))
         _check_launches(gpu.spec, f"path {name}")
         cpu = run_picsou(cfg, cfg, sim, f, device="cpu")
         n = _assert_same(gpu.result, cpu.result, f"path {name}")
@@ -1136,6 +1234,9 @@ def path_phase():
             f"{int(res.gc_frontiers[-1])}; resends/msg "
             f"{gpu.resends_per_msg:.4f}, completion round "
             f"{res.completion_step()}")
+        on = dataclasses.replace(sim, collect_metrics=True)
+        _metrics_twin(f"path {name}", lambda device: [run_picsou(
+            cfg, cfg, on, f, device=device)], [gpu], moved)
     _path_batch(cfg, [FailureScenario.none(), fails,
                       FailureScenario(**stall),
                       FailureScenario(**stall, crash_r=(-1, 8, -1, -1))])
@@ -1204,14 +1305,15 @@ def full_phase(steps_free: int, steps_crash: int):
         total, no_lost, _ = run_m.launches
         launches[0] += total - no_lost
         launches[1] += no_lost
-        out[name] = (run.result, run_m.wall / steps * 1e3)
+        out[name] = (run.result, run_m.wall / steps * 1e3, run_m)
     return launches, out
 
 
 def windowed_phase(dense_crash, steps_crash: int):
     """Phase 5w: the windowed engine at full width. Returns the launch
-    counts and the unprofiled ms per round of the long stream at K = 8
-    and of the crash run."""
+    counts, the unprofiled ms per round of the long stream at K = 8 and
+    of the crash run, and those two runs (result, ``Measured``) for the
+    metrics phase."""
     from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
                                   build_spec)
     cfg = RSMConfig.bft(6)
@@ -1241,7 +1343,7 @@ def windowed_phase(dense_crash, steps_crash: int):
         total, no_lost, _ = run_m.launches
         launches[0] += total - no_lost
         launches[1] += no_lost
-        long[k] = (res, run_m.wall / STEPS_LONG * 1e3)
+        long[k] = (res, run_m.wall / STEPS_LONG * 1e3, run_m)
         del run
     n = _assert_same(long[8][0], long[1][0], "windowed long K=8 vs K=1")
     res = long[8][0]
@@ -1249,6 +1351,7 @@ def windowed_phase(dense_crash, steps_crash: int):
         f"{res.final_window_slots}, frontier trajectory of "
         f"{len(res.gc_frontiers)} ending at {int(res.gc_frontiers[-1])}")
     long_ms = long[8][1]
+    kept = {"long": (long[8][0], long[8][2])}
     del long, res
 
     sim = SimConfig(n_msgs=SHAPE[2], steps=steps_crash, window=4, phi=32,
@@ -1268,24 +1371,32 @@ def windowed_phase(dense_crash, steps_crash: int):
     total, no_lost, _ = run_m.launches
     launches[0] += total - no_lost
     launches[1] += no_lost
-    return launches, long_ms, run_m.wall / steps_crash * 1e3
+    kept["crash"] = (res, run_m)
+    return launches, long_ms, run_m.wall / steps_crash * 1e3, kept
+
+
+def sweep_scenarios():
+    """The sweep's lanes: (name, FailureScenario) of the failure-free link
+    and of receivers 0-5 acking low, stale and +1."""
+    from repro_torch.core import FailureScenario
+    liars = (True,) * 6 + (False,) * 13
+    return [("failure-free", FailureScenario.none()),
+            ("byz_ack_low on 0-5", FailureScenario(byz_ack_low=liars)),
+            ("byz_ack_stale on 0-5", FailureScenario(byz_ack_stale=liars)),
+            ("byz_ack_advance +1 on 0-5", FailureScenario(
+                byz_ack_advance=(1,) * 6 + (0,) * 13))]
 
 
 def sweep_phase():
     """Phase 5s: the full-width sweep of four receiver-side Byzantine ack
     behaviours inside the quorum budget, as the lanes of one batch.
-    Returns its launch counts."""
-    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
-                                  run_picsou, run_picsou_batch)
+    Returns its launch counts, and the K = 8 sweep's results and
+    ``Measured`` for the metrics phase."""
+    from repro_torch.core import (RSMConfig, SimConfig, run_picsou,
+                                  run_picsou_batch)
     from repro_torch.core.simulator import retire_safety_stakes_ok
     cfg = RSMConfig.bft(6)
-    liars = (True,) * 6 + (False,) * 13
-    scenarios = [("failure-free", FailureScenario.none()),
-                 ("byz_ack_low on 0-5", FailureScenario(byz_ack_low=liars)),
-                 ("byz_ack_stale on 0-5",
-                  FailureScenario(byz_ack_stale=liars)),
-                 ("byz_ack_advance +1 on 0-5", FailureScenario(
-                     byz_ack_advance=(1,) * 6 + (0,) * 13))]
+    scenarios = sweep_scenarios()
     fails = [f for _, f in scenarios]
     sim = SimConfig(n_msgs=SWEEP_M, steps=SWEEP_STEPS, window=4, phi=32,
                     window_slots="auto", chunk_steps=CHUNK, superchunk=8)
@@ -1330,7 +1441,128 @@ def sweep_phase():
     log(f"[sweep] lane 1 == a single run_picsou of its scenario at K=8 "
         f"({n} fields)")
     total, no_lost, _ = sweeps[8][1].launches
-    return [total - no_lost, no_lost]
+    return [total - no_lost, no_lost], sweeps[8]
+
+
+def _on_against_off(what: str, on, on_m, off, off_m, steps: int,
+                    msgs: int, window: bool = True) -> None:
+    """Phase 5m: a metrics-on run (``on``: its results, ``on_m`` its
+    ``Measured``) against the same run with metrics off from phases 5,
+    5w and 5s: equal outputs, every lane's metrics equal to its own
+    outputs, the same counters; logs the cost in rounds/s and memory."""
+    for b, (x, y) in enumerate(zip(on, off)):
+        lane = f"{what} lane {b}"
+        n = _assert_same(x, y, f"{lane}: metrics on vs off", window=window)
+        log(f"[metrics {what}] lane {b}: == metrics off ({n} fields); "
+            f"{_obs_checks(x, lane)}")
+    if on_m.counts != off_m.counts or on_m.launches != off_m.launches:
+        raise AssertionError(
+            f"{what}: metrics on moved (dispatches, host syncs, captures, "
+            f"replays) {on_m.counts} and launches {on_m.launches}, metrics "
+            f"off {off_m.counts} and {off_m.launches}")
+    rate_on, rate_off = steps / on_m.wall, steps / off_m.wall
+    log(f"[metrics {what}] counters == metrics off: (dispatches, host "
+        f"syncs, captures, replays) {on_m.counts}, launches "
+        f"{on_m.launches}; metrics on {on_m.wall:.3f} s, {rate_on:.1f} "
+        f"rounds/s, {msgs / on_m.wall:.1f} msgs/s, capturing "
+        f"{on_m.capture_s:.3f} s, peak {on_m.peak_mib:.1f} MiB; metrics "
+        f"off {off_m.wall:.3f} s, {rate_off:.1f} rounds/s, capturing "
+        f"{off_m.capture_s:.3f} s, peak {off_m.peak_mib:.1f} MiB; cost "
+        f"{1 - rate_on / rate_off:.2%} of the rounds/s, "
+        f"{on_m.peak_mib - off_m.peak_mib:+.2f} MiB; device inside graph "
+        f"replays {on_m.graph_ms / 1e3:.3f} s on, "
+        f"{off_m.graph_ms / 1e3:.3f} s off "
+        f"({on_m.graph_ms / off_m.graph_ms - 1:+.2%})")
+
+
+def selftest_on_card() -> None:
+    """``python -m repro_torch.obs --selftest`` on the card, its
+    artifacts in a temporary directory."""
+    import tempfile
+
+    from repro_torch.obs.__main__ import main as obs_main
+    with tempfile.TemporaryDirectory() as out:
+        rc = obs_main(["--selftest", "--out", out])
+    if rc:
+        raise AssertionError(f"repro_torch.obs --selftest exited {rc}")
+
+
+def metrics_phase(dense_free, kept: dict, sweep_off) -> list:
+    """Phase 5m: the selftest, then the full-width runs with
+    ``collect_metrics`` on against their metrics-off runs (``dense_free``
+    and ``kept`` hold (result, ``Measured``) of phases 5 and 5w,
+    ``sweep_off`` (runs, ``Measured``) of 5s). Returns the launch
+    counts."""
+    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
+                                  run_picsou_batch)
+    from repro_torch.obs.tracer import SpanTracer, tracing
+    selftest_on_card()
+    cfg = RSMConfig.bft(6)
+    launches = [0, 0]
+
+    def count(run_m):
+        total, no_lost, _ = run_m.launches
+        launches[0] += total - no_lost
+        launches[1] += no_lost
+
+    sim = SimConfig(n_msgs=M_LONG, steps=STEPS_LONG, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK, superchunk=8,
+                    collect_metrics=True)
+    plan_s = _plan_s(sim, [FailureScenario.none()])
+    tracer = SpanTracer()
+    with tracing(tracer):
+        run, run_m = _full_run("metrics long K=8", sim,
+                               FailureScenario.none(), plan_s)
+    off, off_m = kept.pop("long")
+    _on_against_off("long K=8", [run.result], run_m, [off], off_m,
+                    STEPS_LONG, M_LONG)
+    spans = {name: tracer.count(name) for name in sorted(set(
+        tracer.names()))}
+    log(f"[metrics long K=8] tracer spans {spans}; drain_overlap_ratio "
+        f"{tracer.drain_overlap_ratio():.4f} (no_drains "
+        f"{tracer.no_drains()}); drain_wait "
+        f"{tracer.total_ns('drain_wait') / 1e9:.3f} s of "
+        f"{tracer.total_ns('run') / 1e9:.3f} s in run")
+    count(run_m)
+    del run, off
+
+    crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
+    sim = SimConfig(n_msgs=SHAPE[2], steps=STEPS_CRASH, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK,
+                    collect_metrics=True)
+    run, run_m = _full_run("metrics windowed crash 0.3", sim, crash)
+    off, off_m = kept.pop("crash")
+    _on_against_off("windowed crash 0.3", [run.result], run_m, [off],
+                    off_m, STEPS_CRASH, SHAPE[2])
+    count(run_m)
+    del run, off
+
+    off_runs, off_m = sweep_off
+    fails = [f for _, f in sweep_scenarios()]
+    sim = SimConfig(n_msgs=SWEEP_M, steps=SWEEP_STEPS, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK, superchunk=8,
+                    collect_metrics=True)
+    run_m = Measured(lambda: run_picsou_batch(cfg, cfg, sim, fails),
+                     _plan_s(sim, fails))
+    runs = run_m.result
+    _check_launches(runs[0].spec, "metrics sweep K=8")
+    _check_dispatches(runs[0].spec, run_m.counts, "metrics sweep K=8",
+                      runs[0].result.window_growth_events)
+    _on_against_off("sweep K=8", [r.result for r in runs], run_m,
+                    [r.result for r in off_runs], off_m, SWEEP_STEPS,
+                    SWEEP_M * len(runs))
+    count(run_m)
+    del runs
+
+    sim = SimConfig(n_msgs=SHAPE[2], steps=STEPS_FREE, window=4, phi=32,
+                    collect_metrics=True)
+    run, run_m = _full_run("metrics full failure-free", sim,
+                           FailureScenario.none())
+    off, off_m = dense_free
+    _on_against_off("full failure-free", [run.result], run_m, [off], off_m,
+                    STEPS_FREE, SHAPE[2], window=False)
+    count(run_m)
+    return launches
 
 
 class DispatchWindow:
@@ -1405,14 +1637,17 @@ class DispatchWindow:
 
 
 def profile_window(label: str, spec, first: int, last: int,
-                   run_round_ms: float, w: int = 0) -> None:
+                   run_round_ms: float, w: int = 0) -> tuple:
     """Where a graphed round's time goes: dispatches ``first`` ..
     ``last`` of a run of ``spec``, timed unprofiled, then under
     torch.profiler started and stopped at the same dispatches. Device busy
     share = kernel time per round over the unprofiled window's wall per
     round, and over that of the engine's full run (``run_round_ms``);
     the host µs of each replay, drain start and drain wait in the
-    window."""
+    window; ``quack_scan``'s kernels' µs a round in the window (their
+    inputs warm in the L2, as the round leaves them). Returns the
+    window's kernels a round and kernel ms a round (0, 0 when the
+    profiler saw no kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1440,10 +1675,10 @@ def profile_window(label: str, spec, first: int, last: int,
     if busy_ms <= 0:
         log(f"[profile {label}] device time per round: not measured (the "
             f"profiler saw no kernels)")
-        return
+        return 0.0, 0.0
+    per_round = sum(e.count for e in kernels) / rounds
     log(f"[profile {label}] {busy_ms:.4f} ms/round of kernels on the "
-        f"device, {sum(e.count for e in kernels) / rounds:.1f} "
-        f"kernels/round; {under.wall_per_round() * 1e3:.4f} ms/round under "
+        f"device, {per_round:.1f} kernels/round; {under.wall_per_round() * 1e3:.4f} ms/round under "
         f"the profiler; device busy {busy_ms / plain_ms:.1%} of the "
         f"unprofiled window, {busy_ms / run_round_ms:.1%} of the engine's "
         f"full run ({run_round_ms:.4f} ms/round)")
@@ -1452,6 +1687,14 @@ def profile_window(label: str, spec, first: int, last: int,
         log(f"[profile {label}]   {e.self_device_time_total / rounds:9.2f} "
             f"us/round {e.count / rounds:5.1f} launches/round  "
             f"{e.key[:90]}")
+    for e in kernels:
+        if "quack_scan" in e.key:
+            log(f"[profile {label}] quack_scan in the round (L2 warm): "
+                f"{e.self_device_time_total / rounds:.2f} us/round, "
+                f"{e.count / rounds:.2f} launches/round, "
+                f"{e.self_device_time_total / e.count:.2f} us/launch  "
+                f"{e.key[:90]}")
+    return per_round, busy_ms
 
 
 def profile_phase(dense_round_ms: float, long_round_ms: float,
@@ -1465,11 +1708,24 @@ def profile_phase(dense_round_ms: float, long_round_ms: float,
     crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
     spec = build_spec(cfg, cfg, SimConfig(
         n_msgs=SHAPE[2], steps=12 * 32 + 1, window=4, phi=32), crash)
-    profile_window("dense", spec, 1, 12, dense_round_ms)
+    added = {"dense": [profile_window("dense", spec, 1, 12, dense_round_ms)]}
+    spec = dataclasses.replace(spec, collect_metrics=True)
+    added["dense"].append(profile_window("dense, metrics on", spec, 1, 12,
+                                         dense_round_ms))
     spec = build_spec(cfg, cfg, SimConfig(
         n_msgs=SHAPE[2], steps=3 * 8 * CHUNK + 1, window=4, phi=32,
         window_slots="auto", chunk_steps=CHUNK, superchunk=8))
-    profile_window("windowed K=8", spec, 1, 3, long_round_ms)
+    added["windowed K=8"] = [profile_window("windowed K=8", spec, 1, 3,
+                                            long_round_ms)]
+    spec = dataclasses.replace(spec, collect_metrics=True)
+    added["windowed K=8"].append(profile_window(
+        "windowed K=8, metrics on", spec, 1, 3, long_round_ms))
+    for label, ((k_off, ms_off), (k_on, ms_on)) in added.items():
+        log(f"[profile {label}] the metrics fabric adds "
+            f"{k_on - k_off:.1f} kernels and "
+            f"{(ms_on - ms_off) * 1e3:.2f} us of kernel time a round "
+            f"({k_off:.1f} -> {k_on:.1f} kernels, {ms_off:.4f} -> "
+            f"{ms_on:.4f} ms)")
     # the launch-ahead bound holds only when the window covers two
     # spans' dispatches (2 x 8 x 32 rounds x 76 messages) above the
     # frontier the host saw before the last drain: at W = 65,536 (on a
@@ -1650,14 +1906,18 @@ def main() -> int:
     launches, full = full_phase(STEPS_FREE, STEPS_CRASH)
     log(f"[time] full-size phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    w_launches, w_round_ms, w_crash_ms = windowed_phase(
+    w_launches, w_round_ms, w_crash_ms, kept = windowed_phase(
         full["crash 0.3"][0], STEPS_CRASH)
     log(f"[time] windowed phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    s_launches = sweep_phase()
+    s_launches, sweep_off = sweep_phase()
     log(f"[time] sweep phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    free = full["failure-free"]
+    m_launches = metrics_phase((free[0], free[2]), kept, sweep_off)
+    log(f"[time] metrics phase {time.perf_counter() - t0:.1f} s")
     dense_ms = full["crash 0.3"][1]
-    del full
+    del full, kept, sweep_off, free
     # the windowed profile's full-run comparator is the long stream at
     # K = 8, at W = 6,016 for its whole run (the crash run migrates)
     t0 = time.perf_counter()
@@ -1665,12 +1925,13 @@ def main() -> int:
     log(f"[time] profile phase {time.perf_counter() - t0:.1f} s")
 
     # the main path's launches: the full-size runs, dense and windowed,
-    # and the sweep
+    # the sweep, and the same runs with metrics on
     rows = [("quack_scan", dict(kern[True], launches=launches[0]
-                                + w_launches[0] + s_launches[0],
-                                library_ms=None)),
+                                + w_launches[0] + s_launches[0]
+                                + m_launches[0], library_ms=None)),
             ("quack_scan_no_lost", dict(kern[False], launches=launches[1]
-                                        + w_launches[1] + s_launches[1],
+                                        + w_launches[1] + s_launches[1]
+                                        + m_launches[1],
                                         library_ms=None)),
             ("flash_attention", api["flash_attention"]),
             ("flash_attention_f32", api["flash_attention_f32"]),

@@ -25,6 +25,9 @@ The graphs of one set share one memory pool; ``release`` drops them
 (with their pool) before the state changes layout, when the window grows
 or migrates to the dense layout.
 
+The carried state is a ``NamedTuple`` of tensors, or a tuple of them
+(the simulator's ``(SimState, MetricsCarry)`` when it collects metrics).
+
 Launch accounting: the kernel wrapper's counters
 (``kernels.quack_scan.quack_scan.launches`` / ``launches_no_lost``) move
 only while Python runs the wrapper. A capture records the launches its
@@ -81,11 +84,28 @@ def _add_counts(delta: Dict[str, int], times: int = 1) -> None:
 Body = Callable[[tuple, torch.Tensor], Tuple[tuple, List[torch.Tensor]]]
 
 
+def _leaves(state) -> List[torch.Tensor]:
+    """The tensors of a state tree (tuples and ``NamedTuple``s of
+    tensors), in order."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [leaf for part in state for leaf in _leaves(part)]
+
+
+def _clone(state):
+    """A state tree with every tensor cloned."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    parts = [_clone(part) for part in state]
+    return type(state)(*parts) if hasattr(state, "_fields") else \
+        type(state)(parts)
+
+
 class Programs:
     """The programs of one run at one state layout.
 
-    ``state`` is the carried state (a ``NamedTuple`` of tensors); on a
-    CUDA device its tensors are the static buffers every replay reads and
+    ``state`` is the carried state (a tree of tensors); on a CUDA device
+    its tensors are the static buffers every replay reads and
     rewrites, and they must not alias each other. ``keep`` holds the other
     tensors the bodies read (failure arrays, the run's constants): a
     graph reads them by address, so they live as long as the set.
@@ -147,14 +167,13 @@ class Programs:
         stream = self._stream
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            body(type(self.state)(*(x.clone() for x in self.state)),
-                 self._t0)                       # warm-up, thrown away
+            body(_clone(self.state), self._t0)    # warm-up, thrown away
         torch.cuda.current_stream().wait_stream(stream)
         warm = _counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool, stream=stream):
             new, outputs = body(self.state, self._t0)
-            for dst, src in zip(self.state, new):
+            for dst, src in zip(_leaves(self.state), _leaves(new)):
                 if src is not dst:
                     dst.copy_(src)
         launches = {name: n - warm[name] for name, n in _counts().items()}

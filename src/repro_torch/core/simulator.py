@@ -45,6 +45,14 @@ On a CUDA device every chunk, superchunk and dense block is a captured
 CUDA graph, replayed once a dispatch (``graphs.Programs``); on the CPU
 the same functions run eagerly.
 
+With ``collect_metrics`` a ``obs.metrics.MetricsCarry`` rides beside the
+state through every program (``update_metrics`` after each round,
+``rotate_metrics`` with each rotation), its accumulators drain with the
+queue, and each result carries ``obs``; without it the programs are
+exactly those without the fabric. The windowed loop reports its spans to
+the ambient ``obs.tracer`` (``run``, ``compile``/``dispatch``,
+``drain_wait``, ``window_growth``, ``dense_migration``, ``final_flush``).
+
 Semantics of a round ``t`` (matching Figure 3/4/5/6 of the paper):
   1. intra-RSM broadcasts queued at t-1 land;
   2. retransmissions are declared/elected from knowledge as of t-1 and the
@@ -70,14 +78,18 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.metrics import (MetricsBlock, MetricsCarry, init_metrics_carry,
+                           metrics_updater, migrate_dense_metrics,
+                           obs_from_final, pad_metrics, rotate_metrics,
+                           snapshot_metrics, stack_blocks)
+from ..obs.tracer import obs_begin, obs_end
 from . import scheduler as sched
 from .gc import gc_frontier_device, grow_window, resolve_window_slots
 from .graphs import Programs
 from .quack import (claim_bitmask, missing_below_horizon,
                     stake_quorum_bitmap, weighted_quorum_prefix)
 from .snapshot import WINDOW_FILLS as _WINDOW_FILLS
-from .snapshot import (PinnedDrain, device_state, host_state, pad_window,
-                       to_host)
+from .snapshot import PinnedDrain, device_state, pad_window, to_host
 from .snapshot import window_shapes as _window_shapes
 from .types import (FailureScenario, RSMConfig, SimConfig,
                     lcm_scale_factors)
@@ -94,9 +106,6 @@ __all__ = ["SimSpec", "SimResult", "SimState", "StepMetrics", "FailArrays",
 _NEVER_STEP = 2 ** 30     # orig_step pad for window slots beyond the stream
 _BIG = 2 ** 30
 _I32 = torch.int32
-
-_METRICS_TODO = ("collect_metrics is not ported yet (ROADMAP queue 1, "
-                 "item 4: obs/metrics device half)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +146,7 @@ class SimSpec:
     superchunk: int = 8               # chunks a windowed dispatch fuses
     debug_checks: bool = False        # per-drain checks (windowed)
     use_pallas_quack: bool = False    # carried across; see SimConfig
-    collect_metrics: bool = False     # metrics fabric (not ported yet)
+    collect_metrics: bool = False     # metrics fabric (repro_torch.obs)
 
     def scan_state_nbytes(self) -> int:
         """Device bytes of one lane's per-round state (the P1 footprint).
@@ -267,6 +276,8 @@ class SimResult:
     send_step: Optional[np.ndarray] = None
     # (M,) per-message delivery latency (-1 = not delivered)
     delivery_latency: Optional[np.ndarray] = None
+    # the lane's drained metrics (obs.metrics.ObsMetrics), present only
+    # when the run's SimConfig.collect_metrics was set
     obs: Optional[object] = None
 
     # --- derived -------------------------------------------------------
@@ -833,32 +844,38 @@ def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
     CPU. This is the port's counterpart of the JAX package's one compiled
     ``lax.scan`` over the run. Each block's round metrics are copied
     into one device tensor; the run never waits for the device until
-    the result comes back in one device->host copy at the end.
+    the result comes back in one device->host copy at the end, the
+    metrics carry's accumulators with it when ``collect_metrics`` is set.
     """
     spec0 = specs[0]
     n_b, m, steps = len(specs), spec0.m, spec0.steps
+    collect = spec0.collect_metrics
     fail = _fail_arrays(specs, device)
     plan = _plan(spec0, m, device)
-    progs = Programs(_init_state(spec0, m, device, n_b), device,
-                     keep=(fail, plan))
+    progs = Programs(_carry(_init_state(spec0, m, device, n_b),
+                            init_metrics_carry(m, device, n_b)
+                            if collect else None),
+                     device, keep=(fail, plan))
     metrics = torch.zeros((n_b, steps, len(StepMetrics._fields)),
                           dtype=_I32, device=device)
 
     def block(c):
-        def body(state, t0):
-            state, ms = _rounds(spec0, fail, plan, state, t0, c, m)
-            return state, [ms]
+        def body(carry, t0):
+            state, mc = _split(carry)
+            state, ms, mc = _rounds(spec0, fail, plan, state, t0, c, m, mc)
+            return _carry(state, mc), [ms]
         return body
 
     for t in range(0, steps, DENSE_BLOCK):
         c = min(DENSE_BLOCK, steps - t)
-        (ms,) = progs.run(("dense", c), block(c), t)
+        (ms,) = progs.run(("dense", c, collect), block(c), t)
         metrics[:, t:t + c].copy_(ms)
-    final = progs.state
+    final, mc = _split(progs.state)
     progs.release()
-    quack_time, deliver_time, retry, recv_has, ms = to_host(
+    quack_time, deliver_time, retry, recv_has, ms, *acc = to_host(
         [final.quack_time, final.deliver_time, final.retry, final.recv_has,
-         metrics])
+         metrics] + ([] if mc is None else list(snapshot_metrics(mc))))
+    acc = MetricsBlock(*acc) if collect else None
     out = []
     for b, spec in enumerate(specs):
         ss = _dense_send_step(spec)
@@ -872,8 +889,20 @@ def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
             final_window_slots=spec.m,
             send_step=ss,
             delivery_latency=_latency_from(ss, deliver_time[b]),
+            obs=obs_from_final(acc, [], b) if collect else None,
         ))
     return out
+
+
+def _carry(state: SimState, mc: Optional[MetricsCarry]):
+    """A program's carried state: the ``SimState``, or ``(SimState,
+    MetricsCarry)`` when the run collects metrics."""
+    return state if mc is None else (state, mc)
+
+
+def _split(carry) -> Tuple[SimState, Optional[MetricsCarry]]:
+    """``(SimState, MetricsCarry or None)`` of a carried state."""
+    return (carry, None) if isinstance(carry, SimState) else carry
 
 
 def _resolve_device(device) -> torch.device:
@@ -931,37 +960,45 @@ def _rotate_device(s: SimState, f: torch.Tensor, w: int) -> SimState:
 
 
 def _rounds(spec: SimSpec, fail: FailArrays, plan: _Plan, state: SimState,
-            t0: torch.Tensor, c: int, w: int):
+            t0: torch.Tensor, c: int, w: int,
+            mc: Optional[MetricsCarry] = None):
     """``c`` protocol rounds from round ``t0`` (a () int32 tensor) on each
-    lane's window at its base. Returns ``(state, metrics (B, c, 6)
-    int32)``."""
+    lane's window at its base, folding each round into the metrics carry
+    ``mc`` when one is given. Returns ``(state, metrics (B, c, 6) int32,
+    mc)``."""
     base0 = state.base
     step = _protocol_step(spec, fail, plan.seqs,
                           _sched_window(plan.sched, base0, w), base0, w)
+    update = None if mc is None else metrics_updater(base0.device)
     ts = t0 + torch.arange(c, dtype=_I32, device=base0.device)
     per_round = []
     for i in range(c):
-        state, ms = step(state, ts[i])
+        new, ms = step(state, ts[i])
+        if update is not None:
+            mc = update(mc, state, new, ms, ts[i])
+        state = new
         per_round.append(ms)
-    return state, torch.stack(per_round, dim=1)
+    return state, torch.stack(per_round, dim=1), mc
 
 
 def _chunk(spec: SimSpec, fail: FailArrays, plan: _Plan, state: SimState,
-           t0: torch.Tensor, c: int, w: int, rotate: bool):
+           t0: torch.Tensor, c: int, w: int, rotate: bool,
+           mc: Optional[MetricsCarry] = None):
     """One windowed chunk: ``c`` rounds from ``t0``, then, when
-    ``rotate``, the GC frontier and the ring rotation.
+    ``rotate``, the GC frontier and the ring rotation (of the metrics
+    carry ``mc`` too, when one is given).
 
-    Returns ``(state, metrics (B, c, 6) int32, ChunkQueue)``; the queue
-    holds the pre-rotation outputs and each lane's retired count (0 for
-    the final chunk of a run, which does not rotate). Plain tensor work
-    with no host sync.
+    Returns ``(state, metrics (B, c, 6) int32, ChunkQueue, mc)``; the
+    queue holds the pre-rotation outputs and each lane's retired count (0
+    for the final chunk of a run, which does not rotate). Plain tensor
+    work with no host sync.
     """
     base0 = state.base
-    state, ms = _rounds(spec, fail, plan, state, t0, c, w)
+    state, ms, mc = _rounds(spec, fail, plan, state, t0, c, w, mc)
     if not rotate:
         return state, ms, ChunkQueue(
             state.quack_time, state.deliver_time, state.retry,
-            state.recv_has, base0, torch.zeros_like(base0))
+            state.recv_has, base0, torch.zeros_like(base0)), mc
     f = gc_frontier_device(
         base=base0, t_next=t0 + c, m=spec.m,
         known=state.known, bcast_q=state.bcast_q,
@@ -971,7 +1008,9 @@ def _chunk(spec: SimSpec, fail: FailArrays, plan: _Plan, state: SimState,
         byz_ack_low=fail.byz_ack_low)
     queue = ChunkQueue(state.quack_time, state.deliver_time, state.retry,
                        state.recv_has, base0, f)
-    return _rotate_device(state, f, w), ms, queue
+    if mc is not None:
+        mc = rotate_metrics(mc, f, w)
+    return _rotate_device(state, f, w), ms, queue, mc
 
 
 def _or_zero(ok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -979,12 +1018,12 @@ def _or_zero(ok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, x, False if x.dtype == torch.bool else 0)
 
 
-def _superchunk(spec: SimSpec, fail: FailArrays, plan: _Plan,
-                state: SimState, t0: torch.Tensor, w: int, c: int, k: int,
-                rotate: bool):
+def _superchunk(spec: SimSpec, fail: FailArrays, plan: _Plan, state,
+                t0: torch.Tensor, w: int, c: int, k: int, rotate: bool):
     """``k`` chunk bodies of ``c`` rounds from round ``t0`` in one program:
     the JAX package's ``_compiled_batch_superchunk``, and with ``k = 1``
-    its single chunk.
+    its single chunk. ``state`` is the carried state: a ``SimState``, or
+    ``(SimState, MetricsCarry)`` when the run collects metrics.
 
     Before inner chunk ``i`` runs, the overflow guard tests each lane's
     exact device base against ``needs[i]`` = the highest message
@@ -993,37 +1032,48 @@ def _superchunk(spec: SimSpec, fail: FailArrays, plan: _Plan,
     every lane, AND-ed with the previous chunk's flag. The reference
     skips a failed chunk with a ``lax.cond``; a CUDA graph cannot branch
     on the device, so here every chunk body runs and its results are
-    selected with ``torch.where(ok, new, old)``: the state stays as it
-    was, and the chunk emits zero metrics and a zero queue that carries
-    the lane's base, as the reference's untaken branch does. That is
+    selected with ``torch.where(ok, new, old)``: the state (every leaf of
+    the metrics carry too) stays as it was, and the chunk emits zero
+    metrics, a zero queue that carries the lane's base and the carried
+    metrics snapshot, as the reference's untaken branch does. That is
     exact, and costs device work only on a span that overflows.
 
     Returns ``(state, metrics (k, B, c, 6), ChunkQueue with a leading
-    k axis, oks (k,) bool)``; the host folds the chunks whose flag is
-    set, in order, and rewinds to the first one that is not.
+    k axis, oks (k,) bool)``, and with a metrics carry ``((state, mc),
+    ..., oks, MetricsBlock with a leading k axis)``; the host folds the
+    chunks whose flag is set, in order, and rewinds to the first one
+    that is not.
     """
+    state, mc = _split(state)
     dev = state.base.device
     at = t0 + c * torch.arange(1, k + 1, dtype=_I32, device=dev) - 1
     needs = plan.dispatched_by[at.long()]                      # (k,)
     floor = fail.commit_floor - 1                              # (B,)
     ok = torch.ones((), dtype=torch.bool, device=dev)
-    ms_k, queues, oks = [], [], []
+    ms_k, queues, oks, blocks = [], [], [], []
     for i in range(k):
         over = torch.minimum(needs[i], floor) - state.base
         ok = ok & (over < w).all()
-        new, ms, queue = _chunk(spec, fail, plan, state, t0 + i * c, c, w,
-                                rotate)
+        new, ms, queue, new_mc = _chunk(spec, fail, plan, state, t0 + i * c,
+                                        c, w, rotate, mc)
         state = SimState(*(torch.where(ok, a, b)
                            for a, b in zip(new, state)))
+        if mc is not None:
+            mc = MetricsCarry(*(torch.where(ok, a, b)
+                                for a, b in zip(new_mc, mc)))
+            blocks.append(snapshot_metrics(mc))
         ms_k.append(_or_zero(ok, ms))
         queues.append(queue._replace(**{
             name: _or_zero(ok, getattr(queue, name))
             for name in ChunkQueue._fields if name != "base"}))
         oks.append(ok)
-    return (state, torch.stack(ms_k),
-            ChunkQueue(*(torch.stack([getattr(q, name) for q in queues])
-                         for name in ChunkQueue._fields)),
-            torch.stack(oks))
+    out = (torch.stack(ms_k),
+           ChunkQueue(*(torch.stack([getattr(q, name) for q in queues])
+                        for name in ChunkQueue._fields)),
+           torch.stack(oks))
+    if mc is None:
+        return (state,) + out
+    return ((state, mc),) + out + (stack_blocks(blocks),)
 
 
 # The windowed engine's counters, the JAX package's contract: a *trace*
@@ -1074,7 +1124,8 @@ def _widen_on_overflow(spec: SimSpec, w: int, base: int, need: int,
 def _migrate_dense_batch(spec: SimSpec, state: SimState,
                          bases: np.ndarray, out_quack: np.ndarray,
                          out_deliver: np.ndarray, out_retry: np.ndarray,
-                         out_recv: np.ndarray) -> SimState:
+                         out_recv: np.ndarray,
+                         mc: Optional[MetricsCarry] = None):
     """Embed the windowed state into the dense layout (base 0, W = M).
 
     Adaptive-growth endpoint: when the next doubling would reach the full
@@ -1092,13 +1143,21 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
     continued run is bit-identical in every output to a dense run from
     round 0.
 
-    One-off host transform: one device->host copy of the state, numpy,
-    and back to the state's device.
+    One-off host transform: one device->host copy of the state (and of
+    the metrics carry ``mc``, when one is given, in the same copy),
+    numpy, and back to the state's device. Returns ``(state, mc)``, the
+    carry migrated by ``migrate_dense_metrics`` (None without one).
     """
     n_b = len(bases)
     n_s, n_r, m = spec.n_s, spec.n_r, spec.m
     device = state.base.device
-    state = host_state(state)
+    host = to_host(list(state) + ([] if mc is None else list(mc)))
+    state = SimState(*host[:len(SimState._fields)])
+    if mc is not None:
+        ostep = np.asarray(spec.orig_step, dtype=np.int64)
+        mc = migrate_dense_metrics(
+            MetricsCarry(*host[len(SimState._fields):]), bases,
+            np.broadcast_to(ostep, (n_b, m)), m, device)
     w = state.deliver_time.shape[-1]
     shapes = _window_shapes(n_s, n_r, m)
     dense = {
@@ -1125,7 +1184,7 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
         last_cum=state.last_cum, hq_reports=state.hq_reports,
         ack_floor=state.ack_floor,
         base=np.zeros(n_b, dtype=np.int32),
-        retired_delivered=np.zeros(n_b, dtype=np.int32)), device)
+        retired_delivered=np.zeros(n_b, dtype=np.int32)), device), mc
 
 
 # -------------------------------------------------- host-side helpers
@@ -1176,6 +1235,18 @@ def _concat_metrics(n_b: int, metric_parts) -> StepMetrics:
 
 # ------------------------------------------------------- windowed loop
 def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
+    """The pipelined windowed loop, in the ambient tracer's ``run`` span
+    (see ``_run_windowed_batch_impl``)."""
+    _tr = obs_begin()
+    try:
+        return _run_windowed_batch_impl(specs, device)
+    finally:
+        obs_end(_tr, "run", cat="engine", lanes=len(specs),
+                steps=specs[0].steps if specs else 0)
+
+
+def _run_windowed_batch_impl(specs: List[SimSpec],
+                             device) -> List[SimResult]:
     """The pipelined windowed loop over lanes that share a shape (one per
     spec): the JAX package's ``_run_windowed_batch_impl``.
 
@@ -1183,16 +1254,18 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
     (``_superchunk``: ``chunk_steps`` rounds, each lane's GC frontier and
     ring rotation, K times, with a K-deep ``ChunkQueue`` and K-deep round
     metrics). On a CUDA device a program is captured once per (width,
-    rounds a chunk, chunks, rotation) and replayed (``graphs.Programs``);
-    on the CPU the same function runs eagerly. A span is
-    ``k = min(K, (steps - t - 1) // chunk_steps)`` chunks; the final chunk
-    runs alone and does not rotate. After a dispatch the host starts its
-    drain (``snapshot.PinnedDrain``: queue, metrics and guard flags into
-    pinned buffers), then folds the *previous* dispatch's drain while
-    this one computes: at most one dispatch stays undrained. The drain
-    folds the K inner chunks in order into the (B, ..., M) output mirrors
-    and rewinds ``t`` to the first chunk whose in-graph overflow guard
-    failed.
+    rounds a chunk, chunks, rotation, metrics) and replayed
+    (``graphs.Programs``); on the CPU the same function runs eagerly. A
+    span is ``k = min(K, (steps - t - 1) // chunk_steps)`` chunks; the
+    final chunk runs alone and does not rotate. After a dispatch the host
+    starts its drain (``snapshot.PinnedDrain``: queue, metrics, guard
+    flags and, with ``collect_metrics``, the K-deep ``MetricsBlock``
+    stack into pinned buffers), then folds the *previous* dispatch's
+    drain while this one computes: at most one dispatch stays undrained.
+    The drain folds the K inner chunks in order into the (B, ..., M)
+    output mirrors and rewinds ``t`` to the first chunk whose in-graph
+    overflow guard failed; the blocks of chunks it discarded are dropped
+    with them.
 
     Before each span the host checks, per lane against its own base,
     that the window holds every message dispatched by the first chunk's
@@ -1220,10 +1293,13 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
     c_full = max(spec0.chunk_steps, 1)
     K = max(spec0.superchunk, 1)
     w = spec0.window_slots
+    collect = spec0.collect_metrics
     fail = _fail_arrays(specs, device)
     plan = _plan(spec0, w, device)
-    progs = Programs(_init_state(spec0, w, device, n_b), device,
-                     keep=(fail, plan))
+    progs = Programs(_carry(_init_state(spec0, w, device, n_b),
+                            init_metrics_carry(w, device, n_b)
+                            if collect else None),
+                     device, keep=(fail, plan))
     drains = PinnedDrain(device)
 
     out_quack = np.full((n_b, n_s, m), -1, dtype=np.int32)
@@ -1235,6 +1311,7 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
     bases_hist = [bases.copy()]
     dispatched_by = _max_msg_by_round(spec0)
     metric_parts: List[StepMetrics] = []
+    obs_parts: List[MetricsBlock] = []   # drained per-chunk snapshots
     growth_events: List[WindowGrowthEvent] = []
     debug = spec0.debug_checks
     retire_check = np.array([retire_safety_stakes_ok(s) for s in specs])
@@ -1243,7 +1320,13 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
 
     def drain_one(ent: dict) -> None:
         nonlocal bases, t
-        ms, qq, qd, qr, qh, qbase, qcount, oks = drains.wait(ent["handle"])
+        _tw = obs_begin()
+        ms, qq, qd, qr, qh, qbase, qcount, oks, *blk = drains.wait(
+            ent["handle"])
+        # a successor dispatch still in flight means this wait ran while
+        # the device computed
+        obs_end(_tw, "drain_wait", cat="drain", k=ent["k"],
+                overlapped=bool(pending))
         _HOST_SYNCS[0] += 1
         k, c = ent["k"], ent["c"]
         executed = int(oks.sum())
@@ -1253,6 +1336,8 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
         for i in range(executed):
             metric_parts.append(StepMetrics(*(
                 ms[i, :, :, j].copy() for j in range(ms.shape[3]))))
+            if blk:
+                obs_parts.append(MetricsBlock(*(x[i].copy() for x in blk)))
             if not ent["rotate"]:
                 continue               # final chunk: nothing retired
             if debug and not (qbase[i] == bases).all():
@@ -1281,10 +1366,10 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
             drain_one(pending.pop(0))
 
     def program(c: int, k: int, rotate: bool, w: int, plan: _Plan):
-        def body(state, t0):
-            state, ms, queue, oks = _superchunk(spec0, fail, plan, state,
-                                                t0, w, c, k, rotate)
-            return state, [ms, *queue, oks]
+        def body(carry, t0):
+            carry, ms, queue, oks, *blk = _superchunk(
+                spec0, fail, plan, carry, t0, w, c, k, rotate)
+            return carry, [ms, *queue, oks, *(blk[0] if blk else ())]
         return body
 
     while t < steps:
@@ -1305,18 +1390,26 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
                 step=t + c - 1, scenario=b_worst, need=need, old_w=w,
                 new_w=m if new_w is None else new_w,
                 dense_migration=new_w is None))
-            state = progs.state
+            state, mc = _split(progs.state)
             progs.release()
+            _tg = obs_begin()
             if new_w is None:
-                state = _migrate_dense_batch(spec0, state, bases, *outs)
+                state, mc = _migrate_dense_batch(spec0, state, bases, *outs,
+                                                 mc=mc)
                 _HOST_SYNCS[0] += 1
                 bases[:] = 0
                 w = m
+                obs_end(_tg, "dense_migration", cat="window", t=t,
+                        new_w=m)
             else:
                 state = pad_window(state, new_w)
+                if mc is not None:
+                    mc = pad_metrics(mc, new_w)
                 w = new_w
+                obs_end(_tg, "window_growth", cat="window", t=t,
+                        new_w=new_w)
             plan = _plan(spec0, w, device)
-            progs = Programs(state, device, keep=(fail, plan))
+            progs = Programs(_carry(state, mc), device, keep=(fail, plan))
         # the schedule gather reads [base, base + w) of a schedule padded
         # by w: it stays in range while every base is at most M
         if (bases > m).any():
@@ -1330,13 +1423,17 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
         # frontier advance over the whole span, from the host's bases
         span_need = min(int(dispatched_by[t + k * c - 1]), m - 1)
         async_ok = K > 1 and bool((span_need - bases < w).all())
-        key = (w, c, k, not last)
-        if key not in progs:
+        key = (w, c, k, not last, collect)
+        _td = obs_begin()
+        captured = key not in progs
+        if captured:
             _CHUNK_TRACES[0] += 1
         result = progs.run(key, program(c, k, not last, w, plan), t)
         _CHUNK_DISPATCHES[0] += 1
         pending.append(dict(t0=t, k=k, c=c, rotate=not last, key=key,
                             handle=drains.start(result)))
+        obs_end(_td, "compile" if captured else "dispatch", cat="dispatch",
+                t=t, k=k)
         t += k * c
         while len(pending) > 1:
             drain_one(pending.pop(0))
@@ -1344,13 +1441,19 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
             drain_all()
 
     drain_all()
-    # final flush: the live window, in one copy
-    final = progs.state
+    # final flush: the live window, and the metrics carry's accumulators,
+    # in one copy
+    _tf = obs_begin()
+    final, mc = _split(progs.state)
     progs.release()
+    live = [final.quack_time, final.deliver_time, final.retry,
+            final.recv_has]
+    got = to_host(live + ([] if mc is None else list(snapshot_metrics(mc))))
     _scatter_retired(bases, np.minimum(w, m - bases).clip(min=0),
-                     to_host([final.quack_time, final.deliver_time,
-                              final.retry, final.recv_has]), outs)
+                     got[:len(live)], outs)
+    final_acc = MetricsBlock(*got[len(live):]) if collect else None
     _HOST_SYNCS[0] += 1
+    obs_end(_tf, "final_flush", cat="drain")
 
     ss = _dense_send_step(spec0)
     traj = np.stack(bases_hist)                     # (n_boundaries, n_b)
@@ -1368,6 +1471,8 @@ def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
         window_growth_events=events,
         send_step=ss,
         delivery_latency=_latency_from(ss, out_deliver[b]),
+        obs=(obs_from_final(final_acc, obs_parts, b) if collect
+             else None),
     ) for b, spec in enumerate(specs)]
 
 
@@ -1415,9 +1520,8 @@ def require_uniform_batch(specs: Sequence[SimSpec]) -> None:
 def run_simulation(spec: SimSpec, device=None) -> SimResult:
     """Run one spec on ``device`` (default: CUDA; raises if it is absent):
     windowed when ``spec.window_slots > 0``, else dense. A run is one
-    lane of ``run_simulation_batch``.
-
-    ``collect_metrics`` raises ``NotImplementedError`` (not ported yet).
+    lane of ``run_simulation_batch``. With ``collect_metrics`` the
+    result's ``obs`` holds the lane's ``obs.metrics.ObsMetrics``.
     """
     return run_simulation_batch([spec], device)[0]
 
@@ -1438,8 +1542,6 @@ def run_simulation_batch(specs: Sequence[SimSpec],
     if not specs:
         return []
     require_uniform_batch(specs)
-    if specs[0].collect_metrics:
-        raise NotImplementedError(_METRICS_TODO)
     dev = _resolve_device(device)
     if specs[0].window_slots:
         return _run_windowed_batch(specs, dev)

@@ -317,9 +317,14 @@ class SimConfig:
                      ``kernels.ops.quack_scan``: the hand-written CUDA
                      kernel for CUDA tensors, its plain torch version for
                      CPU tensors, whatever this flag says.
-    collect_metrics: in-graph observability fabric of the windowed
-                     engine; not ported yet (``run_simulation`` raises
-                     ``NotImplementedError`` when it is set).
+    collect_metrics: thread the observability fabric
+                     (``repro_torch.obs.metrics.MetricsCarry``) through
+                     every dense block, chunk and superchunk: each result
+                     carries its lane's ``ObsMetrics`` (latency
+                     histogram, high-water marks, event counts) in
+                     ``obs``. The accumulators ride the drains and the
+                     final copy the run makes anyway, and the outputs are
+                     the same with it on or off.
     """
 
     n_msgs: int = 256

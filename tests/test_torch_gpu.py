@@ -18,7 +18,10 @@ attention 2e-6 in f32 (the JAX tests'), in bf16 atol 1e-5 and rtol 1.6e-2
 RWKV6 1e-4. Attention routes by dtype: every bf16 call must count on the
 wgmma kernel with P in bf16 halves (``launches_sm90``), every f32 call on
 the wgmma kernel in three TF32 passes (``launches_f32``), which is also
-held against its split in plain torch (``ref.mha_split_tf32``).
+held against its split in plain torch (``ref.mha_split_tf32``). With
+``collect_metrics`` the metrics fabric rides the captured graphs: its
+``ObsMetrics`` on the card equal the CPU run's, the outputs equal the
+metrics-off run's, and the engine's counters do not move.
 """
 
 import gc
@@ -28,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import FailureScenario, RSMConfig, SimConfig, graphs
+from repro_torch.core import (FailureScenario, RSMConfig, SimConfig, graphs,
+                              run_picsou_batch)
 from repro_torch.core import simulator as tsim
 from repro_torch.core import snapshot
 from repro_torch.kernels import ops
@@ -38,6 +42,7 @@ from repro_torch.kernels.quack_scan import quack_scan as cuda_quack_scan
 from repro_torch.kernels.ref import (mha_reference, mha_split_tf32,
                                      quack_reference, rwkv6_reference)
 from repro_torch.kernels.rwkv6_scan import rwkv6_chunked as cuda_rwkv6_chunked
+from repro_torch.obs.metrics import init_metrics_carry
 
 pytestmark = pytest.mark.gpu
 
@@ -405,6 +410,127 @@ def test_growth_frees_the_old_widths_graphs(monkeypatch):
     for key, alive in seen:
         assert all(other[0] == key[0] for other in alive), (key, alive)
     assert live() == []
+
+
+# ------------------------------------- the metrics fabric on the card
+_OBS = ("latency_hist", "occupancy_hwm", "gc_lag_hwm", "quack_events",
+        "loss_events", "resend_total", "uncounted", "per_chunk_hist")
+# chip_smoke.py phase 4's link and scenarios: M = 1,024, 200 rounds
+_PATH_FAILS = FailureScenario(crash_s=(2, -1, -1, -1),
+                              byz_recv_drop=(False, False, True, False))
+_PATH_SCENARIOS = [FailureScenario.none(), _PATH_FAILS,
+                   FailureScenario(**_STALL),
+                   FailureScenario(**_STALL, crash_r=(-1, 8, -1, -1))]
+_PATH_SIMS = {
+    "dense": dict(n_msgs=1024, steps=200),
+    "windowed_k1": dict(n_msgs=1024, steps=200, window_slots=256,
+                        chunk_steps=16, superchunk=1),
+    "windowed_k8": dict(n_msgs=1024, steps=200, window_slots=256,
+                        chunk_steps=16, superchunk=8)}
+
+
+def _same_obs(a, b):
+    for f in _OBS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None or y is None:
+            assert x is None and y is None, f
+        else:
+            assert np.array_equal(np.asarray(x), np.asarray(y)), f
+
+
+def _same_run(a, b):
+    for f in ("quack_time", "deliver_time", "retry", "recv_has",
+              "send_step", "delivery_latency", "gc_frontiers"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and np.array_equal(x, y), f
+    for f in tsim.StepMetrics._fields:
+        assert np.array_equal(getattr(a.metrics, f), getattr(b.metrics, f))
+    assert a.window_growth_events == b.window_growth_events
+
+
+def _counters():
+    return (tsim.chunk_dispatch_count(), tsim.host_sync_count(),
+            graphs.replay_count(), cuda_quack_scan.launches,
+            cuda_quack_scan.launches_no_lost,
+            cuda_quack_scan.launches_skipped)
+
+
+@pytest.mark.parametrize("lanes", ["single", "batch"])
+@pytest.mark.parametrize("sim", list(_PATH_SIMS))
+def test_metrics_cuda_run_matches_cpu_run(sim, lanes):
+    """Metrics on: the card == the CPU in every output and every
+    ObsMetrics field, on the path phase's specs (dense, windowed at
+    K = 1 and 8, the window growing and migrating), single and
+    batched; and the card's outputs == its metrics-off run's."""
+    _need_cuda()
+    scen = _PATH_SCENARIOS if lanes == "batch" else [_PATH_FAILS]
+    on = SimConfig(collect_metrics=True, **_PATH_SIMS[sim])
+    gpu = run_picsou_batch(_BFT1, _BFT1, on, scen)
+    cpu = run_picsou_batch(_BFT1, _BFT1, on, scen, device="cpu")
+    off = run_picsou_batch(_BFT1, _BFT1, SimConfig(**_PATH_SIMS[sim]), scen)
+    for g, c, o in zip(gpu, cpu, off):
+        _same_run(g.result, c.result)
+        _same_obs(g.result.obs, c.result.obs)
+        _same_run(g.result, o.result)
+        assert o.result.obs is None
+
+
+def test_graphed_program_with_metrics_equals_eager_on_cuda():
+    """A captured superchunk carrying ``(SimState, MetricsCarry)``:
+    three replays == the same function called eagerly on the card, bit
+    for bit (state, carry, outputs and the K-deep block stack)."""
+    _need_cuda()
+    spec, fail, plan, state, w = _lanes()
+    c, k = 4, 4
+    mc = init_metrics_carry(w, torch.device("cuda"), state.base.shape[0])
+
+    def body(carry, t0):
+        carry, ms, queue, oks, blk = tsim._superchunk(
+            spec, fail, plan, carry, t0, w, c, k, True)
+        return carry, [ms, *queue, oks, *blk]
+
+    def leaves(carry):
+        return list(carry[0]) + list(carry[1])
+
+    progs = graphs.Programs(
+        (tsim.SimState(*(x.clone() for x in state)),
+         type(mc)(*(x.clone() for x in mc))),
+        torch.device("cuda"), keep=(fail, plan))
+    eager = (state, mc)
+    for t in (0, k * c, 2 * k * c):
+        got = [x.clone() for x in progs.run("p", body, t)]
+        eager, want = body(eager, torch.tensor(t, dtype=torch.int32,
+                                               device="cuda"))
+        for a, b in zip(got + leaves(progs.state), want + leaves(eager)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    progs.release()
+
+
+@pytest.mark.parametrize("sim", ["dense", "windowed_k8", "cut_spans"])
+def test_metrics_add_no_dispatch_sync_replay_or_launch(sim):
+    """Dispatches, host syncs, graph replays and ``quack_scan``'s launch
+    counters (with those of chunk bodies a guard discarded) move the
+    same with metrics on as off."""
+    _need_cuda()
+    kw = (dict(n_msgs=128, steps=128 // 4 + 80, window=1, phi=6,
+               window_slots=16, chunk_steps=8, superchunk=8)
+          if sim == "cut_spans" else _PATH_SIMS[sim])
+    fails = (FailureScenario(**_STALL) if sim == "cut_spans"
+             else _PATH_FAILS)
+    moved = {}
+    for collect in (False, True):
+        spec = tsim.build_spec(_BFT1, _BFT1, SimConfig(
+            collect_metrics=collect, **kw), fails)
+        torch.cuda.synchronize()
+        before = _counters()
+        res = tsim.run_simulation(spec)
+        moved[collect] = (res, tuple(a - b for a, b in
+                                     zip(_counters(), before)))
+    _same_run(moved[True][0], moved[False][0])
+    assert moved[True][1] == moved[False][1]
+    assert moved[True][1][2] > 0
+    if sim == "cut_spans":
+        assert moved[True][1][5] > 0
 
 
 # (B, H, KV, Sq, Skv, D, causal, window, block): the JAX test grid, the

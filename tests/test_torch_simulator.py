@@ -215,8 +215,9 @@ def test_analytic_throughput_matches_jax():
 
 # ------------------------------------------- engine limits of this slice
 def test_windowed_and_metrics_raise_not_implemented():
-    """``collect_metrics`` is still not ported and raises; a windowed spec
-    now runs (``tests/test_torch_windowed.py`` holds it to ``repro``)."""
+    """Neither a windowed spec nor ``collect_metrics`` raises any more:
+    both run (``tests/test_torch_windowed.py`` and
+    ``tests/test_torch_obs.py`` hold them to ``repro``)."""
     spec = tsim.build_spec(tcore.RSMConfig.bft(1), tcore.RSMConfig.bft(1),
                            tcore.SimConfig(n_msgs=256, window_slots=64))
     res = tsim.run_simulation(spec, device="cpu")
@@ -225,8 +226,9 @@ def test_windowed_and_metrics_raise_not_implemented():
     spec = tsim.build_spec(tcore.RSMConfig.bft(1), tcore.RSMConfig.bft(1),
                            tcore.SimConfig(n_msgs=64, steps=4,
                                            collect_metrics=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.run_simulation(spec, device="cpu")
+    res = tsim.run_simulation(spec, device="cpu")
+    assert res.obs is not None
+    assert res.obs.total_counted() == int((res.deliver_time >= 0).sum())
 
 
 def test_auto_window_clamped_to_dense_runs():
