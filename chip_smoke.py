@@ -24,7 +24,8 @@ Phases, each of which raises on failure (exit code non-zero):
    stakes and thresholds; mismatches must be 0. Device time per call at
    the dense shape and at the windowed shape (1, 19, 19, 6016) (CUDA
    events around a CUDA-graph replay that rotates over input sets
-   totalling more than the 50 MB L2, so every call reads cold data), the
+   totalling more than the 50 MB L2, so every call reads cold data), and
+   at phase 8's lane shapes (3, 19, 19, 6016) and (6, 19, 19, 6016), the
    plain version's time the same way, and the bytes bounds.
 4. Path phase: BFT f = 1, M = 1,024, a crashed sender and a Byzantine
    receiver, run on CUDA and on an explicitly requested CPU, densely and
@@ -144,6 +145,40 @@ Phases, each of which raises on failure (exit code non-zero):
    at the SM clock ``nvidia-smi`` gives as its maximum, and the SM clock
    and power draw it samples while the kernel runs back to back.
 
+8. Topologies and the §6 applications (``repro_torch.topology``,
+   ``repro_torch.apps``). 8a at the path size (BFT f = 1, M = 1,024,
+   W = 256, 16-round chunks): a pair with a Byzantine receiver, a fanout
+   to three backups with a crashed-receiver and a Byzantine-receiver
+   link, a four-cluster chain with a crashed-receiver middle link, and a
+   chain whose first link is GC-stalled, each at K = 1 and 8, metrics
+   off and on, on CUDA and on the CPU, and through the numpy mirror
+   ``run_topology_reference``: every link's outputs, round metrics,
+   ``send_step``, ``delivery_latency``, frontiers, floors, final width
+   and growth events bit-identical; with metrics each link's histogram
+   the numpy histogram of its latency array; one dispatch per chunk,
+   each a graph replay, one ``plan_floors`` span and one drain per
+   chunk, and 2 x steps + rotating chunks ``quack_scan`` launches
+   whatever the links. ``run_reported_topology``'s spans; a commit floor
+   written in place between two replays of one captured program must
+   change what it dispatches; both applications on the JAX tests'
+   fixtures, CUDA == CPU == ``use_reference=True`` in every report
+   field. 8b at full width (BFT f = 6, window 4, phi 32, W = 6,016,
+   32-round chunks): a chain a-b-c-d at M = 262,144 (every link all
+   delivered and quacked, each chained link's floors its upstream's
+   frontiers and nothing sent before its upstream retired it, the first
+   link == ``run_picsou`` of it; beside it the same links as a plain
+   ``run_picsou_batch`` at K = 1, the difference being the floor
+   boundary's cost); disaster recovery from a primary to three backups
+   over 3,510 rounds (backup-1 loses 7 > f receivers at round 1,755,
+   backup-2's receivers 0-5 drop, the primary crashes at round 3,300):
+   phase 1 == ``run_picsou_batch`` of the three link scenarios bit for
+   bit, the elected backup holds the longest prefix, the report
+   converges; reconciliation of three clusters (six links) holding
+   65,536 keys each, one link with a dropping receiver, to the LWW union
+   computed on the host. Each logs its wall, rounds/s and messages/s,
+   dispatches, host syncs, captures and their host s, device time
+   inside replays, peak memory and its ``plan_floors`` spans.
+
 The last lines are the ``kernels`` JSON line, and then
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
 result when there is no CUDA card or when the package is not beside it.
@@ -185,12 +220,28 @@ STEPS_CRASH = 64000
 # a round (19 senders x window 4) and ends 60 rounds after its last send
 CHUNK = 32
 WIN_SHAPE = (1, 19, 19, 6016)    # the windowed quorum launch (B, S, R, W)
+TOPO_LANES = (3, 6)    # lanes (links) of phase 8's full-width topologies
 M_LONG = 1_048_576
 STEPS_LONG = -(-M_LONG // 76) + 60
 # the full-width sweep: four lanes of the same link, M = 262,144 over
 # ceil(M / 76) + 60 = 3,510 rounds
 SWEEP_M = 262_144
 SWEEP_STEPS = -(-SWEEP_M // 76) + 60
+# phase 8: the path-size topologies (BFT f = 1, M = 1,024, W = 256,
+# 16-round chunks), then at full width (BFT f = 6, the sweep's M and
+# rounds): a four-cluster chain, whose every hop lags its upstream by the
+# rounds below; disaster recovery, the primary crashing at DR_CRASH and
+# backup-1 losing 7 > f receivers at DR_LAG_AT; reconciliation of stores
+# of RECON_M keys over streams of RECON_M messages
+TOPO_SIM = dict(n_msgs=1024, steps=240, window_slots=256, chunk_steps=16)
+# the chain's links complete at rounds 3,456, 3,495 and 3,527 (lags of 39
+# and 32 rounds a hop; PERF.md), so 3,528 rounds (ceil(M / 76) + 60 + 18)
+# are the fewest at which the last hop completes
+CHAIN_STEPS = 3528
+DR_CRASH = 3300
+DR_LAG_AT = 1755
+RECON_M = 65_536
+RECON_STEPS = -(-RECON_M // 76) + 60
 # each kernel of the JSON line: its source, and the TPU kernel it replaces
 CSRC = "src/repro_torch/kernels/csrc"
 KERNEL_FILES = {
@@ -405,15 +456,20 @@ def kernel_phase(dev):
             return quack_reference(*a, compute_lost=compute_lost)
 
         # four input sets of 47.3 MB rotate, so no call finds its inputs
-        # in the 50 MB L2; at the windowed shape, as many 4.3 MB sets as
-        # exceed it
+        # in the 50 MB L2; at the windowed shape (4.3 MB a lane) and at
+        # phase 8's lane counts, as many sets as exceed it
         timed = {}
-        for label, shape, sets in (
-                ("dense", (1,) + SHAPE,
-                 [quack_inputs(*SHAPE, gen, False, dev) for _ in range(4)]),
-                ("windowed", WIN_SHAPE,
-                 input_sets(lane_inputs(*WIN_SHAPE, gen, dev),
-                            lambda: lane_inputs(*WIN_SHAPE, gen, dev)))):
+        shapes_timed = [("dense", (1,) + SHAPE, lambda: [
+            quack_inputs(*SHAPE, gen, False, dev) for _ in range(4)])]
+        for label, shape in (("windowed", WIN_SHAPE),) + tuple(
+                (f"topology, {b} links", (b,) + WIN_SHAPE[1:])
+                for b in TOPO_LANES):
+            shapes_timed.append((label, shape, lambda shape=shape:
+                                 input_sets(lane_inputs(*shape, gen, dev),
+                                            lambda: lane_inputs(*shape, gen,
+                                                                dev))))
+        for label, shape, make_sets in shapes_timed:
+            sets = make_sets()
             k_times = graph_ms(kern, sets)
             p_times = graph_ms(plain, sets)
             del sets
@@ -438,6 +494,11 @@ def kernel_phase(dev):
                                     max_abs_err=worst, windowed_ms=w_ms,
                                     windowed_plain_ms=w_plain,
                                     windowed_bound_ms=w_bms)
+        for b in TOPO_LANES:
+            t_ms, t_plain, t_bms, _ = timed[f"topology, {b} links"]
+            result[compute_lost].update({
+                f"lanes{b}_ms": t_ms, f"lanes{b}_plain_ms": t_plain,
+                f"lanes{b}_bound_ms": t_bms})
     return result
 
 
@@ -1787,6 +1848,544 @@ def chunk_cost(spans: int = 4) -> None:
         f"{(per_round[32] - b / 32) * 1e3:.4f} ms")
 
 
+# ------------------------------------------------------------ phase 8
+def _same_topology(a, b, what: str, engine: bool = True) -> int:
+    """Two topology runs link by link: every output, ``send_step``,
+    ``delivery_latency``, the frontier and commit-floor trajectories; two
+    engine runs also every round metric, dtype, the final width and the
+    growth events (``_assert_same``). Returns the fields compared."""
+    if list(a.links) != list(b.links):
+        raise AssertionError(f"{what}: the runs have other links")
+    n = 0
+    for name in a.links:
+        x, y = a[name], b[name]
+        if not np.array_equal(x.commit_floors, y.commit_floors):
+            raise AssertionError(f"{what} {name}: the commit floors differ")
+        if engine:
+            n += _assert_same(x.result, y.result, f"{what} {name}")
+            continue
+        for f in OUTPUT_FIELDS + ("gc_frontiers",):
+            if not np.array_equal(getattr(x.result, f),
+                                  getattr(y.result, f)):
+                raise AssertionError(f"{what} {name}: the runs differ in "
+                                     f"{f}")
+            n += 1
+    return n
+
+
+def _session_launches(sessions):
+    """The launch contract of topology sessions run chunk at a time: per
+    session 2 x rounds + rotating chunks (one launch covers every
+    link), and rounds + rotating chunks without the loss quorum."""
+    total = no_lost = 0
+    for res in sessions:
+        steps, c = res.topology.sim.steps, res.topology.sim.chunk_steps
+        rotating = -(-steps // c) - 1
+        total += 2 * steps + rotating
+        no_lost += steps + rotating
+    return total, no_lost
+
+
+def _check_topology_counts(sessions, moved, tracer, what: str) -> str:
+    """A topology run's contract: one dispatch per chunk (a floor callback
+    fuses nothing), each a graph replay and each drained once (host syncs
+    = dispatches + the final flush + one per dense migration), one
+    ``plan_floors`` span per chunk, and the launches of
+    ``_session_launches`` with none discarded."""
+    dispatches, syncs, captures, replays, total, no_lost, skipped = moved
+    chunks = sum(-(-r.topology.sim.steps // r.topology.sim.chunk_steps)
+                 for r in sessions)
+    migrations = sum(
+        sum(e.dense_migration for e in
+            next(iter(r.links.values())).result.window_growth_events)
+        for r in sessions)
+    want_total, want_no_lost = _session_launches(sessions)
+    spans = tracer.count("plan_floors")
+    line = (f"{dispatches} dispatches ({replays} graph replays of "
+            f"{captures} captured programs), {syncs} host syncs, {spans} "
+            f"plan_floors spans for {chunks} chunks; quack_scan launches "
+            f"{total} ({no_lost} without the loss quorum, {skipped} "
+            f"discarded)")
+    if (dispatches != chunks or replays != dispatches or spans != chunks
+            or syncs != dispatches + len(sessions) + migrations
+            or total != want_total or no_lost != want_no_lost or skipped):
+        raise AssertionError(f"{what}: contract broken: {line}; expected "
+                             f"{want_total} ({want_no_lost}) launches")
+    return line
+
+
+def topology_fixtures(sim):
+    """Phase 8a's topologies on the path-size link: a pair with a
+    Byzantine receiver, a fanout to three backups with a crashed-receiver
+    and a Byzantine-receiver link, a four-cluster chain with a crashed-
+    receiver middle link, and a chain whose first link is GC-stalled
+    (``tests/test_topology.py``'s fault shapes)."""
+    from repro_torch.core import FailureScenario, RSMConfig
+    from repro_torch.topology import Topology
+    cfg = RSMConfig.bft(1)
+    byz = FailureScenario(byz_recv_drop=(True, False, False, False))
+    crash = FailureScenario(crash_r=(2, 2, -1, -1))
+    stall = FailureScenario(byz_bcast_partial=(True, False, False, False),
+                            bcast_limit=2)
+    return {
+        "pair, Byzantine receiver": Topology.pair(
+            "a", "b", cfg, sim, failures_ab=byz),
+        "fanout to three backups": Topology.fanout(
+            "p", ["b0", "b1", "b2"], cfg, sim,
+            failures={"b1": crash, "b2": byz}),
+        "chain a-b-c-d, crashed middle link": Topology.chain(
+            ["a", "b", "c", "d"], cfg, sim, failures={"b->c": crash}),
+        "chain a-b-c, GC-stalled first link": Topology.chain(
+            ["a", "b", "c"], cfg, sim, failures={"a->b": stall}),
+    }
+
+
+def _traced(fn):
+    """(``fn()``, counters moved, its ``SpanTracer``)."""
+    from repro_torch.obs.tracer import SpanTracer, tracing
+    tracer = SpanTracer()
+    torch.cuda.synchronize()
+    before = _counters()
+    with tracing(tracer):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, tuple(a - b for a, b in zip(_counters(), before)), tracer
+
+
+def _topology_path(name: str, base) -> None:
+    """One phase-8a fixture at K = 1 and 8, metrics off and on, on CUDA
+    and on the CPU, against the numpy mirror."""
+    from repro_torch.topology import run_topology, run_topology_reference
+    ref = run_topology_reference(base)
+    runs = {}
+    for k in (1, 8):
+        for collect in (False, True):
+            topo = dataclasses.replace(base, sim=dataclasses.replace(
+                base.sim, superchunk=k, collect_metrics=collect))
+            what = f"topology {name} K={k} metrics {collect}"
+            gpu, moved, tracer = _traced(lambda: run_topology(topo))
+            line = _check_topology_counts([gpu], moved, tracer, what)
+            cpu = run_topology(topo, device="cpu")
+            n = _same_topology(gpu, cpu, f"{what} cuda vs cpu")
+            _same_topology(gpu, ref, f"{what} vs the numpy mirror",
+                           engine=False)
+            if collect:
+                for lname, lr in gpu.links.items():
+                    _same_obs(lr.result.obs, cpu[lname].result.obs,
+                              f"{what} {lname} cuda vs cpu")
+                    _obs_checks(lr.result, f"{what} {lname}")
+            runs[(k, collect)] = (gpu, moved)
+    first, moved = runs[(1, False)]
+    for key, (res, m) in runs.items():
+        _same_topology(res, first, f"topology {name} {key} vs K=1 off")
+        if m != moved:
+            raise AssertionError(f"topology {name} {key}: counters {m}, "
+                                 f"K=1 metrics off {moved}")
+    res0 = next(iter(first.links.values())).result
+    log(f"[topology path] {name}: {len(first.links)} links, cuda == cpu "
+        f"({n} fields) == numpy mirror, K=1 == K=8, metrics on == off "
+        f"(each link's histogram == its latency array's), same counters; "
+        f"{line}; delivered prefixes {first.delivered_prefixes()}, "
+        f"floors of the last link "
+        f"{first[base.link_names[-1]].commit_floors[:6].tolist()}..., "
+        f"final W {res0.final_window_slots}, growth {growth(res0)}")
+
+
+def _floor_in_place() -> None:
+    """The captured chunk programs read the commit floor from a tensor the
+    loop rewrites in place: a floor held at 0 for three chunks and opened
+    to M before the fourth makes the same captured program dispatch."""
+    from repro_torch.core import RSMConfig, SimConfig, build_spec, graphs
+    from repro_torch.core.simulator import _run_windowed_batch
+    cfg = RSMConfig.bft(1)
+    spec = build_spec(cfg, cfg, SimConfig(n_msgs=256, steps=80,
+                                          window_slots=256, chunk_steps=8))
+    opens = 24
+
+    def floors(t, bases):
+        return np.full(1, 0 if t < opens else spec.m, dtype=np.int64)
+
+    before = (graphs.capture_count(), graphs.replay_count())
+    gpu = _run_windowed_batch([spec], torch.device("cuda"), floors)[0]
+    captures, replays = (a - b for a, b in zip(
+        (graphs.capture_count(), graphs.replay_count()), before))
+    cpu = _run_windowed_batch([spec], torch.device("cpu"), floors)[0]
+    _assert_same(gpu, cpu, "floor in place cuda vs cpu")
+    cross = gpu.metrics.cross_msgs
+    ostep = np.asarray(spec.orig_step)
+    want = np.where(ostep < spec.steps, np.maximum(ostep, opens), -1)
+    if (captures != 2 or replays != spec.steps // 8
+            or cross[:opens].sum() or not cross[opens:opens + 8].sum()
+            or not np.array_equal(gpu.send_step, want)
+            or not (gpu.deliver_time >= 0).all()):
+        raise AssertionError(
+            f"floor in place: {captures} captures, {replays} replays, "
+            f"{int(cross[:opens].sum())} copies before round {opens}, "
+            f"{int(cross[opens:opens + 8].sum())} in the chunk after")
+    log(f"[topology path] a floor written in place between two replays of "
+        f"one captured program: {captures} programs captured, {replays} "
+        f"replays; 0 copies crossed before round {opens}, "
+        f"{int(cross[opens:opens + 8].sum())} in the next chunk; send_step "
+        f"== max(schedule round, {opens}); == the CPU run")
+
+
+# the JAX tests' application fixtures (tests/test_apps.py), rebuilt here:
+# the script imports nothing of the JAX package
+def _app_fixtures():
+    from repro_torch.core import FailureScenario, SimConfig
+    laggy = FailureScenario(crash_r=(2, 2, -1, -1))
+    byz = FailureScenario(byz_recv_drop=(True, False, False, False))
+    dr_sim = SimConfig(n_msgs=32, steps=80, window=1, phi=6,
+                       window_slots=24, chunk_steps=4)
+    dr = [("clean_no_crash", None, {}),
+          ("crash_late", 10, {"backup-1": laggy}),
+          ("crash_early_truncates", 3, {"backup-1": laggy}),
+          ("three_backups", 6, {"backup-1": laggy, "backup-2": byz})]
+
+    def two_way():
+        return {"a": {k: (k * 10, 1) for k in range(12)} | {50: (7, 5)},
+                "b": {k: (k * 10, 1) for k in range(6)} | {50: (1, 1),
+                                                           60: (9, 2)}}
+
+    def three_way():
+        return {"a": {k: (k, 2) for k in range(8)},
+                "b": {k: (k + 1, 1) for k in range(8)} | {20: (4, 4)},
+                "c": {30: (5, 1)}}
+
+    rsim = SimConfig(n_msgs=16, steps=60, window=1, phi=6, window_slots=16,
+                     chunk_steps=4)
+    recon = [("two_way", two_way, rsim, {}),
+             ("three_way", three_way, rsim, {}),
+             ("two_way_byz_link", two_way, rsim, {"a->b": byz}),
+             ("three_way_small_stream", three_way, dataclasses.replace(
+                 rsim, n_msgs=4, steps=40, window_slots=4), {})]
+    return dr_sim, dr, recon
+
+
+def _apps_path() -> None:
+    """Both applications on the JAX tests' fixtures: CUDA == CPU ==
+    ``use_reference=True`` in every report field and every link."""
+    from repro_torch.apps import run_disaster_recovery, run_reconciliation
+    from repro_torch.core import RSMConfig
+    cfg = RSMConfig.bft(1)
+    dr_sim, dr, recon = _app_fixtures()
+    for name, crash_at, fails in dr:
+        kw = dict(backups=sorted({"backup-0", "backup-1"} | set(fails)),
+                  crash_at=crash_at, backup_failures=fails)
+        gpu = run_disaster_recovery(cfg, cfg, dr_sim, **kw)
+        cpu = run_disaster_recovery(cfg, cfg, dr_sim, device="cpu", **kw)
+        ref = run_disaster_recovery(cfg, cfg, dr_sim, use_reference=True,
+                                    **kw)
+        for other, label in ((cpu, "cpu"), (ref, "numpy mirror")):
+            if (gpu.elected != other.elected
+                    or gpu.phase1_prefixes != other.phase1_prefixes
+                    or gpu.final_prefixes != other.final_prefixes
+                    or gpu.converged != other.converged
+                    or not np.array_equal(gpu.recovered_log,
+                                          other.recovered_log)):
+                raise AssertionError(f"disaster recovery {name}: cuda != "
+                                     f"{label}")
+            for p in ("phase1", "phase2"):
+                a, b = getattr(gpu, p), getattr(other, p)
+                if (a is None) != (b is None):
+                    raise AssertionError(f"disaster recovery {name} {p}")
+                if a is not None:
+                    _same_topology(a, b, f"disaster recovery {name} {p} "
+                                   f"vs {label}", engine=label == "cpu")
+        if not gpu.converged:
+            raise AssertionError(f"disaster recovery {name}: not converged")
+        log(f"[apps path] disaster recovery {name}: cuda == cpu == numpy "
+            f"mirror; elected {gpu.elected}, phase-1 prefixes "
+            f"{gpu.phase1_prefixes}, recovered {gpu.recovered_entries}, "
+            f"converged")
+    for name, mk, sim, fails in recon:
+        reps = [run_reconciliation(cfg, mk(), sim, failures=fails),
+                run_reconciliation(cfg, mk(), sim, failures=fails,
+                                   device="cpu"),
+                run_reconciliation(cfg, mk(), sim, failures=fails,
+                                   use_reference=True)]
+        gpu = reps[0]
+        for other, label in zip(reps[1:], ("cpu", "numpy mirror")):
+            if (gpu.rounds != other.rounds or gpu.stores != other.stores
+                    or gpu.exchanged != other.exchanged
+                    or gpu.converged != other.converged
+                    or len(gpu.sessions) != len(other.sessions)):
+                raise AssertionError(f"reconciliation {name}: cuda != "
+                                     f"{label}")
+            for a, b in zip(gpu.sessions, other.sessions):
+                _same_topology(a, b, f"reconciliation {name} vs {label}",
+                               engine=label == "cpu")
+        if not gpu.converged:
+            raise AssertionError(f"reconciliation {name}: not converged")
+        log(f"[apps path] reconciliation {name}: cuda == cpu == numpy "
+            f"mirror; {gpu.rounds} rounds, {gpu.exchanged} entries "
+            f"exchanged, converged")
+
+
+def topology_path_phase() -> None:
+    """Phase 8a at the path size (BFT f = 1, M = 1,024, W = 256)."""
+    from repro_torch.core import SimConfig
+    from repro_torch.obs.report import run_reported_topology
+    for name, topo in topology_fixtures(SimConfig(**TOPO_SIM)).items():
+        _topology_path(name, topo)
+    topo = topology_fixtures(SimConfig(**TOPO_SIM))[
+        "chain a-b-c-d, crashed middle link"]
+    _, report = run_reported_topology(topo)
+    names = {e["name"] for e in report.chrome_trace["traceEvents"]}
+    problems = report.validate()
+    if not {"run_topology", "plan_floors", "run"} <= names or problems:
+        raise AssertionError(f"run_reported_topology: spans {names}, "
+                             f"problems {problems}")
+    log(f"[topology path] run_reported_topology on the chain: lanes "
+        f"{report.lane_names}, spans {sorted(names)}, the report validates;"
+        f" meta {report.meta}")
+    _floor_in_place()
+    _apps_path()
+
+
+def _measured_line(run_m, rounds: int, msgs: int, tracer) -> str:
+    """``Measured.line`` with the engine's counters and the
+    ``plan_floors`` spans."""
+    dispatches, syncs, captures, replays = run_m.counts
+    return (run_m.line(rounds, msgs)
+            + f"; {dispatches} dispatches, {syncs} host syncs, {captures} "
+            f"captures; {tracer.count('plan_floors')} plan_floors spans, "
+            f"{tracer.total_ns('plan_floors') / 1e9:.4f} s on the host")
+
+
+def _measured_traced(fn, plan_s: float = 0.0):
+    """``Measured`` of ``fn`` under a ``SpanTracer``; (Measured, tracer)."""
+    from repro_torch.obs.tracer import SpanTracer, tracing
+    tracer = SpanTracer()
+
+    def run():
+        with tracing(tracer):
+            return fn()
+    return Measured(run, plan_s), tracer
+
+
+def _count_launches(launches, run_m, sessions, what: str) -> None:
+    """Check a measured run's launches against ``_session_launches`` and
+    add them to the main path's counts."""
+    total, no_lost, skipped = run_m.launches
+    want = _session_launches(sessions)
+    if (total, no_lost) != want or skipped:
+        raise AssertionError(f"{what}: launches {(total, no_lost)}, "
+                             f"expected {want}")
+    launches[0] += total - no_lost
+    launches[1] += no_lost
+
+
+def _chain_full(cfg, launches) -> None:
+    """Phase 8b: the four-cluster chain at full width."""
+    from repro_torch.core import SimConfig, run_picsou
+    from repro_torch.core.simulator import _run_windowed_batch
+    from repro_torch.topology import Topology, link_specs, run_topology
+    from repro_torch.topology.engine import FloorPlanner, _floor_plan
+    sim = SimConfig(n_msgs=SWEEP_M, steps=CHAIN_STEPS, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK)
+    topo = Topology.chain(["a", "b", "c", "d"], cfg, sim)
+    t0 = time.perf_counter()
+    specs = link_specs(topo)
+    plan_s = time.perf_counter() - t0
+    run_m, tracer = _measured_traced(lambda: run_topology(topo), plan_s)
+    res = run_m.result
+    _count_launches(launches, run_m, [res], "chain")
+    _check_topology_counts([res], run_m.counts + run_m.launches, tracer,
+                           "chain")
+    done, lags = [], []
+    for i, name in enumerate(topo.link_names):
+        lr = res[name]
+        r = lr.result
+        if not ((r.deliver_time >= 0).all() and (r.quack_time >= 0).all()):
+            raise AssertionError(f"chain {name}: not all delivered and "
+                                 f"quacked in {CHAIN_STEPS} rounds")
+        done.append(r.completion_step())
+        if i:
+            up = res[topo.link_names[i - 1]]
+            if not np.array_equal(lr.commit_floors, up.result.gc_frontiers[
+                    :len(lr.commit_floors)]):
+                raise AssertionError(f"chain {name}: its floors are not "
+                                     f"its upstream's frontiers")
+            # no message goes out before the chunk at which its upstream
+            # had retired it
+            opened = np.searchsorted(lr.commit_floors, np.arange(SWEEP_M),
+                                     side="right")
+            sent = r.send_step >= 0
+            if (r.send_step[sent] < opened[sent] * CHUNK).any():
+                raise AssertionError(f"chain {name}: a message was sent "
+                                     f"before its upstream retired it")
+            lags.append(done[i] - done[i - 1])
+    log(f"[chain] BFT f=6 <-> f=6, four clusters, three links, M={SWEEP_M},"
+        f" steps={CHAIN_STEPS}, W={specs[0].window_slots}: "
+        + _measured_line(run_m, CHAIN_STEPS, SWEEP_M * len(specs), tracer)
+        + f" (planning, {plan_s:.3f} s, taken off); completion rounds "
+        f"{done}, lag per hop {lags} rounds; every link all delivered and "
+        f"quacked; floors == upstream frontiers; nothing sent before its "
+        f"upstream retired it; growth "
+        f"{growth(res[topo.link_names[0]].result)}")
+    if done[-1] + 1 != CHAIN_STEPS:
+        log(f"[chain] note: the last hop completes at round {done[-1]}; "
+            f"the smallest steps would be {done[-1] + 1}")
+    first = res[topo.link_names[0]].result
+    floors_last = res[topo.link_names[-1]].commit_floors
+    # the floor boundary's cost: the engine loop alone on the same link
+    # specs at K = 1 (planned once, outside the timing), chained and
+    # unchained, in turns
+    dev = torch.device("cuda")
+    k1 = [dataclasses.replace(s, superchunk=1) for s in specs]
+    loops = {"chained": [], "plain": []}
+    for kind in ("chained", "plain", "plain", "chained"):
+        planner = (FloorPlanner(_floor_plan(topo), len(k1), SWEEP_M)
+                   if kind == "chained" else None)
+        m = Measured(lambda: _run_windowed_batch(k1, dev, planner))
+        for i, name in enumerate(topo.link_names):
+            if kind == "chained" or i == 0:
+                _assert_same(m.result[i], res[name].result,
+                             f"chain loop {kind} {name}")
+        m.result = None
+        loops[kind].append(m)
+        log(f"[chain] the engine loop, {kind}, run {len(loops[kind])}: "
+            + m.line(CHAIN_STEPS, SWEEP_M * len(k1))
+            + f"; dispatches {m.counts[0]}, host syncs {m.counts[1]}")
+    del res
+    chunks = -(-CHAIN_STEPS // CHUNK)
+    wall = {k: sum(m.wall for m in v) / 2 for k, v in loops.items()}
+    busy = {k: sum(m.graph_ms for m in v) / 2e3 for k, v in loops.items()}
+    log(f"[chain] the floor boundary (drain, callback, in-place copy, "
+        f"send_step update), chained against plain loops at K=1, mean of "
+        f"two runs each: wall {wall['chained']:.3f} s against "
+        f"{wall['plain']:.3f} s, "
+        f"{(wall['chained'] - wall['plain']) / chunks * 1e3:.3f} ms a chunk"
+        f" ({(wall['chained'] - wall['plain']) / CHAIN_STEPS * 1e3:.4f} ms"
+        f" a round, {wall['chained'] / wall['plain'] - 1:+.2%}); device "
+        f"time inside replays {busy['chained']:.3f} s against "
+        f"{busy['plain']:.3f} s")
+    single = run_picsou(cfg, cfg, dataclasses.replace(sim, superchunk=1))
+    n = _assert_same(first, single.result, "chain first link vs run_picsou",
+                     window=single.spec.window_slots > 0
+                     and first.window_growth_events
+                     == single.result.window_growth_events)
+    log(f"[chain] the unchained first link == run_picsou of the same link "
+        f"({n} fields); the last link's floors start "
+        f"{floors_last[:4].tolist()}")
+
+
+def _dr_full(cfg, launches) -> None:
+    """Phase 8b: disaster recovery at full width."""
+    from repro_torch.apps import run_disaster_recovery
+    from repro_torch.apps.disaster_recovery import _with_primary_crash
+    from repro_torch.core import (FailureScenario, SimConfig,
+                                  run_picsou_batch)
+    sim = SimConfig(n_msgs=SWEEP_M, steps=SWEEP_STEPS, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK)
+    backups = ["backup-0", "backup-1", "backup-2"]
+    fails = {"backup-1": FailureScenario(crash_r=(DR_LAG_AT,) * 7
+                                         + (-1,) * 12),
+             "backup-2": FailureScenario(byz_recv_drop=(True,) * 6
+                                         + (False,) * 13)}
+    plan_s = _plan_s(sim, [FailureScenario.none()] * 3)
+    run_m, tracer = _measured_traced(lambda: run_disaster_recovery(
+        cfg, cfg, sim, backups=backups, crash_at=DR_CRASH,
+        backup_failures=fails), plan_s)
+    rep = run_m.result
+    sessions = [rep.phase1] + ([rep.phase2] if rep.phase2 else [])
+    _count_launches(launches, run_m, sessions, "disaster recovery")
+    _check_topology_counts(sessions, run_m.counts + run_m.launches, tracer,
+                           "disaster recovery")
+    rounds = sum(r.topology.sim.steps for r in sessions)
+    msgs = sum(r.topology.sim.n_msgs * len(r.links) for r in sessions)
+    if not rep.converged or rep.phase1_prefixes[rep.elected] != max(
+            rep.phase1_prefixes.values()):
+        raise AssertionError(f"disaster recovery: elected {rep.elected}, "
+                             f"prefixes {rep.phase1_prefixes}, converged "
+                             f"{rep.converged}")
+    p1 = rep.phase1[f"primary->{backups[0]}"].result
+    log(f"[disaster recovery] primary -> {len(backups)} backups, BFT f=6, "
+        f"M={SWEEP_M}, {SWEEP_STEPS} rounds, the primary crashes at round "
+        f"{DR_CRASH}, backup-1 loses 7 receivers at round {DR_LAG_AT}, "
+        f"backup-2's receivers 0-5 drop: "
+        + _measured_line(run_m, rounds, msgs, tracer)
+        + f" (both phases, {rounds} rounds; planning of phase 1, "
+        f"{plan_s:.3f} s, taken off); elected {rep.elected}, phase-1 "
+        f"prefixes {rep.phase1_prefixes}, final {rep.final_prefixes}, "
+        f"recovered {rep.recovered_entries}, converged; phase 1 growth "
+        f"{growth(p1)}, phase 2 "
+        + (f"{rep.phase2.topology.sim.steps} rounds over "
+           f"{rep.phase2.topology.sim.n_msgs} messages, growth "
+           f"{growth(next(iter(rep.phase2.links.values())).result)}"
+           if rep.phase2 else "not needed"))
+    scen = [_with_primary_crash(fails.get(b, FailureScenario.none()),
+                                cfg.n, DR_CRASH) for b in backups]
+    batch = run_picsou_batch(cfg, cfg, dataclasses.replace(
+        sim, superchunk=1), scen)
+    n = 0
+    for b, run in zip(backups, batch):
+        n += _assert_same(rep.phase1[f"primary->{b}"].result, run.result,
+                          f"disaster recovery phase 1 {b} vs "
+                          f"run_picsou_batch",
+                          window=run.spec.window_slots > 0)
+    log(f"[disaster recovery] phase 1 == run_picsou_batch of the three link"
+        f" scenarios bit for bit ({n} fields)")
+
+
+def recon_stores(n: int):
+    """``tests/test_apps.py``'s three-way divergence at n keys a store:
+    a holds keys [0, n) at version 2; b the lower half of them at
+    version 1 and n / 2 keys of its own at version 4; c n keys of its
+    own."""
+    half = n // 2
+    return {"a": {k: (k, 2) for k in range(n)},
+            "b": ({k: (k + 1, 1) for k in range(half)}
+                  | {n + k: (4, 4) for k in range(half)}),
+            "c": {2 * n + k: (5, 1) for k in range(n)}}
+
+
+def _recon_full(cfg, launches) -> None:
+    """Phase 8b: reconciliation of three f = 6 clusters at full width."""
+    from repro_torch.apps import lww_merge, run_reconciliation
+    from repro_torch.core import FailureScenario, SimConfig
+    sim = SimConfig(n_msgs=RECON_M, steps=RECON_STEPS, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK)
+    stores = recon_stores(RECON_M)
+    expect: dict = {}
+    for s in stores.values():
+        lww_merge(expect, [(k, v, ver) for k, (v, ver) in s.items()])
+    fails = {"a->b": FailureScenario(byz_recv_drop=(True,) + (False,) * 18)}
+    run_m, tracer = _measured_traced(lambda: run_reconciliation(
+        cfg, stores, sim, failures=fails))
+    rep = run_m.result
+    _count_launches(launches, run_m, rep.sessions, "reconciliation")
+    _check_topology_counts(rep.sessions, run_m.counts + run_m.launches,
+                           tracer, "reconciliation")
+    if not rep.converged or any(s != expect for s in rep.stores.values()):
+        same = [s == expect for s in rep.stores.values()]
+        raise AssertionError(f"reconciliation: converged {rep.converged}, "
+                             f"stores equal to the LWW union {same}")
+    rounds = sum(r.topology.sim.steps for r in rep.sessions)
+    log(f"[reconciliation] three BFT f=6 clusters, six links, stores of "
+        f"{RECON_M} keys, M={RECON_M}, {RECON_STEPS} rounds a session, "
+        f"receiver 0 of a->b drops: "
+        + _measured_line(run_m, rounds, RECON_M * 6 * len(rep.sessions),
+                         tracer)
+        + f" (planning inside); {rep.rounds} reconciliation rounds, "
+        f"{rep.exchanged} entries exchanged, every store == the LWW union "
+        f"({len(expect)} keys) computed on the host")
+
+
+def topology_full_phase() -> list:
+    """Phase 8b at full width; returns the main path's launch counts."""
+    from repro_torch.core import RSMConfig
+    cfg = RSMConfig.bft(6)
+    launches = [0, 0]
+    for part in (_chain_full, _dr_full, _recon_full):
+        t0 = time.perf_counter()
+        part(cfg, launches)
+        gc.collect()
+        log(f"[time] {part.__name__[1:]} {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def build_all() -> dict:
     """Phase 2: every source, one nvcc each, all started together. Returns
     {source name: library path}."""
@@ -1923,15 +2522,24 @@ def main() -> int:
     t0 = time.perf_counter()
     profile_phase(dense_ms, w_round_ms, w_crash_ms)
     log(f"[time] profile phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    topology_path_phase()
+    log(f"[time] topology path phase {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    t_launches = topology_full_phase()
+    log(f"[time] topology full-width phase {time.perf_counter() - t1:.1f} s"
+        f"; phase 8 {time.perf_counter() - t0:.1f} s")
 
     # the main path's launches: the full-size runs, dense and windowed,
-    # the sweep, and the same runs with metrics on
+    # the sweep, the same runs with metrics on, and the full-width
+    # topologies and applications
     rows = [("quack_scan", dict(kern[True], launches=launches[0]
                                 + w_launches[0] + s_launches[0]
-                                + m_launches[0], library_ms=None)),
+                                + m_launches[0] + t_launches[0],
+                                library_ms=None)),
             ("quack_scan_no_lost", dict(kern[False], launches=launches[1]
                                         + w_launches[1] + s_launches[1]
-                                        + m_launches[1],
+                                        + m_launches[1] + t_launches[1],
                                         library_ms=None)),
             ("flash_attention", api["flash_attention"]),
             ("flash_attention_f32", api["flash_attention_f32"]),
@@ -1945,8 +2553,8 @@ def main() -> int:
             mismatches=k["mismatches"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"],
-            **{key: k[key] for key in ("windowed_ms", "windowed_plain_ms",
-                                       "windowed_bound_ms") if key in k}))
+            **{key: k[key] for key in k if key.startswith(
+                ("windowed_", "lanes"))}))
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError("a kernel of the main path never launched")
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,8 @@
 
 The port of the JAX package ``repro`` to PyTorch, with the TPU kernels
 rewritten by hand for NVIDIA Hopper. It mirrors ``repro``'s layout and
-names (``repro_torch.core``, ``repro_torch.kernels``) and imports nothing
+names (``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.obs``,
+``repro_torch.topology``, ``repro_torch.apps``) and imports nothing
 of ``repro`` or JAX. Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """

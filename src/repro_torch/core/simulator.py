@@ -50,8 +50,9 @@ state through every program (``update_metrics`` after each round,
 ``rotate_metrics`` with each rotation), its accumulators drain with the
 queue, and each result carries ``obs``; without it the programs are
 exactly those without the fabric. The windowed loop reports its spans to
-the ambient ``obs.tracer`` (``run``, ``compile``/``dispatch``,
-``drain_wait``, ``window_growth``, ``dense_migration``, ``final_flush``).
+the ambient ``obs.tracer`` (``run``, ``plan_floors``,
+``compile``/``dispatch``, ``drain_wait``, ``window_growth``,
+``dense_migration``, ``final_flush``).
 
 Semantics of a round ``t`` (matching Figure 3/4/5/6 of the paper):
   1. intra-RSM broadcasts queued at t-1 land;
@@ -1125,7 +1126,8 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
                          bases: np.ndarray, out_quack: np.ndarray,
                          out_deliver: np.ndarray, out_retry: np.ndarray,
                          out_recv: np.ndarray,
-                         mc: Optional[MetricsCarry] = None):
+                         mc: Optional[MetricsCarry] = None,
+                         send_step: Optional[np.ndarray] = None):
     """Embed the windowed state into the dense layout (base 0, W = M).
 
     Adaptive-growth endpoint: when the next doubling would reach the full
@@ -1146,7 +1148,8 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
     One-off host transform: one device->host copy of the state (and of
     the metrics carry ``mc``, when one is given, in the same copy),
     numpy, and back to the state's device. Returns ``(state, mc)``, the
-    carry migrated by ``migrate_dense_metrics`` (None without one).
+    carry migrated by ``migrate_dense_metrics`` from the loop's per-lane
+    dispatch mirror ``send_step`` (B, M) (None without a carry).
     """
     n_b = len(bases)
     n_s, n_r, m = spec.n_s, spec.n_r, spec.m
@@ -1154,10 +1157,9 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
     host = to_host(list(state) + ([] if mc is None else list(mc)))
     state = SimState(*host[:len(SimState._fields)])
     if mc is not None:
-        ostep = np.asarray(spec.orig_step, dtype=np.int64)
         mc = migrate_dense_metrics(
-            MetricsCarry(*host[len(SimState._fields):]), bases,
-            np.broadcast_to(ostep, (n_b, m)), m, device)
+            MetricsCarry(*host[len(SimState._fields):]), bases, send_step,
+            m, device)
     w = state.deliver_time.shape[-1]
     shapes = _window_shapes(n_s, n_r, m)
     dense = {
@@ -1234,19 +1236,20 @@ def _concat_metrics(n_b: int, metric_parts) -> StepMetrics:
 
 
 # ------------------------------------------------------- windowed loop
-def _run_windowed_batch(specs: List[SimSpec], device) -> List[SimResult]:
+def _run_windowed_batch(specs: List[SimSpec], device,
+                        commit_floors=None) -> List[SimResult]:
     """The pipelined windowed loop, in the ambient tracer's ``run`` span
     (see ``_run_windowed_batch_impl``)."""
     _tr = obs_begin()
     try:
-        return _run_windowed_batch_impl(specs, device)
+        return _run_windowed_batch_impl(specs, device, commit_floors)
     finally:
         obs_end(_tr, "run", cat="engine", lanes=len(specs),
                 steps=specs[0].steps if specs else 0)
 
 
-def _run_windowed_batch_impl(specs: List[SimSpec],
-                             device) -> List[SimResult]:
+def _run_windowed_batch_impl(specs: List[SimSpec], device,
+                             commit_floors=None) -> List[SimResult]:
     """The pipelined windowed loop over lanes that share a shape (one per
     spec): the JAX package's ``_run_windowed_batch_impl``.
 
@@ -1279,8 +1282,21 @@ def _run_windowed_batch_impl(specs: List[SimSpec],
     So every K gives the K = 1 loop's outputs, metrics, frontier
     trajectories and growth events bit for bit.
 
-    Commit floors are held at M (a standalone link), so every message
-    dispatches at its schedule round. With ``debug_checks`` each drained
+    ``commit_floors``, when given, is called as ``commit_floors(t,
+    bases)`` before the chunk starting at round ``t``, after a full drain
+    (``bases``: each lane's retired prefix), inside a ``plan_floors``
+    span, and returns each lane's commit floor for that chunk: a lane
+    dispatches no message at or past its floor (the topology engine
+    routes an upstream link's retired prefix into a chained link's
+    floor). The captured programs read the floors from
+    ``fail.commit_floor``, so a new floor is written into that tensor in
+    place, on the stream that replays; ``fail`` lives as long as the run,
+    across growth and migration, and carries the floors with it. A
+    callback makes every span one chunk. Without one every floor is M (a
+    standalone link). A lane's overflow need is capped by its floor, and
+    ``send_step`` records when each message was dispatched: at its
+    schedule round, or at the round its floor opened past it if that is
+    later. With ``debug_checks`` each drained
     chunk checks that the host's base mirror tracks the device rotation
     and, for lanes whose adversary stakes keep
     ``retire_safety_stakes_ok``, that every retired slot is held by at
@@ -1317,6 +1333,12 @@ def _run_windowed_batch_impl(specs: List[SimSpec],
     retire_check = np.array([retire_safety_stakes_ok(s) for s in specs])
     pending: List[dict] = []      # dispatched, not yet drained (<= 1)
     t = 0
+    ostep = np.asarray(spec0.orig_step, dtype=np.int64)
+    floors = np.full(n_b, m, dtype=np.int64)
+    # each lane's dispatch round of every message (-1: not yet), filled
+    # as its floor opens
+    send_step = np.full((n_b, m), -1, dtype=np.int64)
+    open_floor = np.zeros(n_b, dtype=np.int64)
 
     def drain_one(ent: dict) -> None:
         nonlocal bases, t
@@ -1374,16 +1396,37 @@ def _run_windowed_batch_impl(specs: List[SimSpec],
 
     while t < steps:
         c = min(c_full, steps - t)
-        # per-lane overflow check: a lane's window must hold every
-        # message dispatched by the chunk's last round, measured against
-        # its own base; only a potential overflow waits for the drain
-        need = min(int(dispatched_by[t + c - 1]), m - 1)
-        if pending and (need - bases >= w).any():
+        # the floors follow this boundary's retired prefixes, so the
+        # pipeline drains before asking; no replay reads the floors while
+        # they are written
+        if commit_floors is not None:
             drain_all()
-        over = need - bases
+            _tp = obs_begin()
+            new_floors = np.asarray(commit_floors(t, bases.copy()),
+                                    dtype=np.int64)
+            obs_end(_tp, "plan_floors", cat="plan", t=t)
+            if not np.array_equal(new_floors, floors):
+                floors = new_floors
+                fail.commit_floor.copy_(torch.from_numpy(
+                    floors.astype(np.int32)))
+        # a floor that opened dispatches its newly committed messages at
+        # max(schedule round, now)
+        for b in np.nonzero(floors > open_floor)[0]:
+            ks = np.arange(open_floor[b], floors[b])
+            send_step[b, ks] = np.maximum(ostep[ks], t)
+            open_floor[b] = floors[b]
+        # per-lane overflow check: a lane's window must hold every
+        # message it may dispatch by the chunk's last round (nothing at
+        # or past its floor), measured against its own base; only a
+        # potential overflow waits for the drain
+        need_b = np.minimum(int(dispatched_by[t + c - 1]), floors - 1)
+        if pending and (need_b - bases >= w).any():
+            drain_all()
+        over = need_b - bases
         b_worst = int(over.argmax())
         if over[b_worst] >= w:
             drain_all()
+            need = int(need_b[b_worst])
             new_w = _widen_on_overflow(spec0, w, int(bases[b_worst]), need,
                                        t + c - 1)
             growth_events.append(WindowGrowthEvent(
@@ -1395,7 +1438,7 @@ def _run_windowed_batch_impl(specs: List[SimSpec],
             _tg = obs_begin()
             if new_w is None:
                 state, mc = _migrate_dense_batch(spec0, state, bases, *outs,
-                                                 mc=mc)
+                                                 mc=mc, send_step=send_step)
                 _HOST_SYNCS[0] += 1
                 bases[:] = 0
                 w = m
@@ -1417,11 +1460,12 @@ def _run_windowed_batch_impl(specs: List[SimSpec],
                                f"{m}")
         last = t + c >= steps
         k = 1
-        if not last and c == c_full:
+        if not last and c == c_full and commit_floors is None:
             k = min(K, (steps - t - 1) // c_full)
         # launch ahead only when the guard provably cannot fire: no
         # frontier advance over the whole span, from the host's bases
-        span_need = min(int(dispatched_by[t + k * c - 1]), m - 1)
+        span_need = np.minimum(int(dispatched_by[t + k * c - 1]),
+                               floors - 1)
         async_ok = K > 1 and bool((span_need - bases < w).all())
         key = (w, c, k, not last, collect)
         _td = obs_begin()
@@ -1455,7 +1499,9 @@ def _run_windowed_batch_impl(specs: List[SimSpec],
     _HOST_SYNCS[0] += 1
     obs_end(_tf, "final_flush", cat="drain")
 
-    ss = _dense_send_step(spec0)
+    # a round past the run's end never came
+    ss = np.where((send_step >= 0) & (send_step < steps), send_step,
+                  -1).astype(np.int32)
     traj = np.stack(bases_hist)                     # (n_boundaries, n_b)
     all_metrics = _concat_metrics(n_b, metric_parts)
     events = tuple(growth_events)
@@ -1469,8 +1515,8 @@ def _run_windowed_batch_impl(specs: List[SimSpec],
         gc_frontiers=traj[:, b].astype(np.int64),
         final_window_slots=w,
         window_growth_events=events,
-        send_step=ss,
-        delivery_latency=_latency_from(ss, out_deliver[b]),
+        send_step=ss[b],
+        delivery_latency=_latency_from(ss[b], out_deliver[b]),
         obs=(obs_from_final(final_acc, obs_parts, b) if collect
              else None),
     ) for b, spec in enumerate(specs)]

@@ -29,8 +29,8 @@ itself imports) — import it directly::
     report.save("obs_out/report")
 
 ``python -m repro_torch.obs --selftest`` (``repro_torch.obs.__main__``)
-drives this end to end. (The JAX package's ``run_reported_topology``
-comes with the port's topology engine.)
+drives this end to end; ``run_reported_topology`` does the same for a
+whole ``repro_torch.topology.Topology``, one report lane per link.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from .metrics import ObsMetrics, bucket_label, latency_histogram_np
 from .tracer import SpanTracer, tracing
 
 __all__ = ["RunReport", "validate_chrome_trace", "report_from_results",
-           "run_reported"]
+           "run_reported", "run_reported_topology"]
 
 
 def validate_chrome_trace(doc: dict) -> List[str]:
@@ -288,6 +288,27 @@ def _metrics_spec(spec: SimSpec) -> SimSpec:
             else dataclasses.replace(spec, collect_metrics=True))
 
 
+def _traced(run, dev: torch.device):
+    """``run()`` under a fresh tracer: ``(its result, the tracer, meta)``
+    with the device and the engine's counter deltas (programs first used,
+    dispatches, host syncs, CUDA graph replays)."""
+    tracer = SpanTracer()
+    before = _engine_counts()
+    with tracing(tracer):
+        result = run()
+    traces, dispatches, syncs, replays = (
+        a - b for a, b in zip(_engine_counts(), before))
+    meta = {
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else str(dev)),
+        "chunk_traces": traces,
+        "chunk_dispatches": dispatches,
+        "host_syncs": syncs,
+        "graph_replays": replays,
+    }
+    return result, tracer, meta
+
+
 def run_reported(spec: SimSpec, device=None):
     """Run one spec with the full observability stack on, on ``device``
     (default: CUDA; raises if it is absent).
@@ -299,26 +320,40 @@ def run_reported(spec: SimSpec, device=None):
     """
     spec = _metrics_spec(spec)
     dev = _resolve_device(device)
-    tracer = SpanTracer()
-    before = _engine_counts()
-    with tracing(tracer):
-        result = run_simulation(spec, device=dev)
-    traces, dispatches, syncs, replays = (
-        a - b for a, b in zip(_engine_counts(), before))
-    meta = {
+    result, tracer, meta = _traced(
+        lambda: run_simulation(spec, device=dev), dev)
+    meta.update({
         "m": spec.m, "steps": spec.steps,
         "window_slots": int(spec.window_slots or 0),
         "superchunk": spec.superchunk,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else str(dev)),
-        "chunk_traces": traces,
-        "chunk_dispatches": dispatches,
-        "host_syncs": syncs,
-        "graph_replays": replays,
         "delivered": int((np.asarray(result.deliver_time) >= 0).sum()),
-    }
+    })
     return result, report_from_results([result], tracer,
                                        lane_names=["link"], meta=meta)
+
+
+def run_reported_topology(topo, device=None):
+    """Run a topology with the full observability stack on, on ``device``
+    (default: CUDA; raises if it is absent).
+
+    Returns ``(TopologyResult, RunReport)`` with one report lane per
+    link, named by link name, and the engine's counter deltas and the
+    device in ``report.meta``.
+    """
+    # local import: topology.engine imports the simulator like we do,
+    # keeping the obs package's import surface acyclic
+    from ..topology.engine import run_topology
+    if not topo.sim.collect_metrics:
+        topo = dataclasses.replace(
+            topo, sim=dataclasses.replace(topo.sim, collect_metrics=True))
+    dev = _resolve_device(device)
+    tres, tracer, meta = _traced(lambda: run_topology(topo, device=dev),
+                                 dev)
+    names = [l.name for l in topo.links]
+    meta["links"] = names
+    results = [tres.links[n].result for n in names]
+    return tres, report_from_results(results, tracer, lane_names=names,
+                                     meta=meta)
 
 
 def _engine_counts():

@@ -25,9 +25,11 @@ Canonical span names emitted by the engine
   ``window_growth``   adaptive 2x window growth (state re-pad)
   ``dense_migration`` windowed -> dense layout fallback
   ``final_flush``     terminal state fetch + retire scatter
+  ``plan_floors``     a commit-floor callback at a chunk boundary
+                      (``cat="plan"``; topology runs)
+  ``run_topology``    a whole ``repro_torch.topology.run_topology``
 
-(``checkpoint`` and ``plan_floors`` come with the replay and topology
-layers, which emit them.)
+(``checkpoint`` comes with the replay layer, which emits it.)
 
 Export: :meth:`SpanTracer.export_chrome_trace` writes Chrome
 trace-event JSON loadable in Perfetto / ``chrome://tracing``;

@@ -21,7 +21,11 @@ the wgmma kernel in three TF32 passes (``launches_f32``), which is also
 held against its split in plain torch (``ref.mha_split_tf32``). With
 ``collect_metrics`` the metrics fabric rides the captured graphs: its
 ``ObsMetrics`` on the card equal the CPU run's, the outputs equal the
-metrics-off run's, and the engine's counters do not move.
+metrics-off run's, and the engine's counters do not move. Topologies
+(``repro_torch.topology``) and the §6 applications (``repro_torch.apps``)
+on the card equal their CPU runs and the numpy mirror, and a commit
+floor written between two replays of one captured chunk program changes
+what that program dispatches.
 """
 
 import gc
@@ -744,3 +748,127 @@ def test_rwkv6_kernel_rejects_bad_inputs():
     shifted.copy_(r)                       # contiguous, 4 bytes off 16
     with pytest.raises(ValueError, match="16-byte"):
         cuda_rwkv6_chunked(shifted, k, v, w, u, chunk=32)
+
+
+# ------------------------------------------- topologies and applications
+def _same_topology(a, b, outputs_only=False):
+    """Two topology runs link by link: outputs and floors, and (for two
+    engine runs) every other field of ``_same_run``."""
+    assert list(a.links) == list(b.links)
+    for name in a.links:
+        x, y = a[name], b[name]
+        assert np.array_equal(x.commit_floors, y.commit_floors), name
+        if outputs_only:
+            for f in ("quack_time", "deliver_time", "retry", "recv_has",
+                      "send_step", "delivery_latency", "gc_frontiers"):
+                assert np.array_equal(getattr(x.result, f),
+                                      getattr(y.result, f)), (name, f)
+        else:
+            _same_run(x.result, y.result)
+            assert (x.result.final_window_slots
+                    == y.result.final_window_slots)
+
+
+def test_floor_written_in_place_reaches_the_captured_program():
+    """The captured chunk programs read the commit floor from a tensor
+    the loop rewrites in place: a floor held at 0 for three chunks and
+    opened to M before the fourth makes the *same* captured program,
+    replayed, dispatch the stream from round 24 on (a floor written as
+    a new tensor would leave the graph reading 0)."""
+    _need_cuda()
+    cfg = RSMConfig.bft(1)
+    spec = tsim.build_spec(cfg, cfg, SimConfig(
+        n_msgs=256, steps=80, window_slots=256, chunk_steps=8))
+    opens = 24
+
+    def floors(t, bases):
+        return np.full(1, 0 if t < opens else spec.m, dtype=np.int64)
+
+    cpu = tsim._run_windowed_batch([spec], torch.device("cpu"),
+                                   commit_floors=floors)[0]
+    captures = graphs.capture_count()
+    replays = graphs.replay_count()
+    gpu = tsim._run_windowed_batch([spec], torch.device("cuda"),
+                                   commit_floors=floors)[0]
+    # one rotating chunk program and the last chunk's, every chunk a
+    # replay
+    assert graphs.capture_count() - captures == 2
+    assert graphs.replay_count() - replays == spec.steps // 8
+    _same_run(gpu, cpu)
+    cross = gpu.metrics.cross_msgs
+    assert cross[:opens].sum() == 0 and cross[opens:opens + 8].sum() > 0
+    ostep = np.asarray(spec.orig_step)
+    want = np.where(ostep < spec.steps, np.maximum(ostep, opens), -1)
+    assert np.array_equal(gpu.send_step, want)
+    assert (gpu.deliver_time >= 0).all()
+
+
+def _topology_fixtures():
+    from repro_torch.topology import Topology
+    cfg = RSMConfig.bft(1)
+    sim = SimConfig(n_msgs=256, steps=160, window_slots=64, chunk_steps=16)
+    return {
+        "fanout": Topology.fanout(
+            "p", ["b0", "b1", "b2"], cfg, sim,
+            failures={"b0": FailureScenario(crash_r=(8, 8, -1, -1)),
+                      "b2": FailureScenario(
+                          byz_recv_drop=(True, False, False, False))}),
+        "chain": Topology.chain(
+            ["a", "b", "c", "d"], cfg, sim,
+            failures={"b->c": FailureScenario(crash_r=(8, 8, -1, -1))}),
+        "chain_gc_stall": Topology.chain(
+            ["a", "b", "c"], cfg, SimConfig(
+                n_msgs=256, steps=200, window_slots=64, chunk_steps=16,
+                collect_metrics=True),
+            failures={"a->b": FailureScenario(
+                byz_bcast_partial=(True, False, False, False),
+                bcast_limit=2)}),
+    }
+
+
+@pytest.mark.parametrize("name", ["fanout", "chain", "chain_gc_stall"])
+def test_topology_cuda_run_matches_cpu_run_and_mirror(name):
+    """A topology on the card == on the CPU (every output, metric, floor
+    and frontier; metrics too where on) == the numpy mirror; one launch
+    pair a round covers every link."""
+    _need_cuda()
+    from repro_torch.topology import run_topology, run_topology_reference
+    topo = _topology_fixtures()[name]
+    cpu = run_topology(topo, device="cpu")
+    before = cuda_quack_scan.launches
+    gpu = run_topology(topo)
+    chunks = -(-topo.sim.steps // topo.sim.chunk_steps)
+    assert (cuda_quack_scan.launches - before
+            == 2 * topo.sim.steps + chunks - 1)
+    _same_topology(gpu, cpu)
+    if topo.sim.collect_metrics:
+        for lname in gpu.links:
+            _same_obs(gpu[lname].result.obs, cpu[lname].result.obs)
+    _same_topology(gpu, run_topology_reference(topo), outputs_only=True)
+
+
+def test_disaster_recovery_cuda_matches_cpu_and_mirror():
+    """A primary crash with a laggy and a Byzantine backup: the card's
+    report == the CPU's == the numpy mirror's, field by field."""
+    _need_cuda()
+    from repro_torch.apps import run_disaster_recovery
+    cfg = RSMConfig.bft(1)
+    sim = SimConfig(n_msgs=256, steps=120, window_slots=64, chunk_steps=8)
+    kw = dict(backups=["backup-0", "backup-1", "backup-2"], crash_at=10,
+              backup_failures={
+                  "backup-1": FailureScenario(crash_r=(2, 2, -1, -1)),
+                  "backup-2": FailureScenario(
+                      byz_recv_drop=(True, False, False, False))})
+    gpu = run_disaster_recovery(cfg, cfg, sim, **kw)
+    cpu = run_disaster_recovery(cfg, cfg, sim, device="cpu", **kw)
+    ref = run_disaster_recovery(cfg, cfg, sim, use_reference=True, **kw)
+    assert gpu.converged and 0 < gpu.recovered_entries < sim.n_msgs
+    for other in (cpu, ref):
+        assert gpu.elected == other.elected
+        assert gpu.phase1_prefixes == other.phase1_prefixes
+        assert gpu.final_prefixes == other.final_prefixes
+        assert gpu.converged == other.converged
+        assert np.array_equal(gpu.recovered_log, other.recovered_log)
+    _same_topology(gpu.phase1, cpu.phase1)
+    _same_topology(gpu.phase2, cpu.phase2)
+    _same_topology(gpu.phase1, ref.phase1, outputs_only=True)
