@@ -15,18 +15,27 @@ Phases, each of which raises on failure (exit code non-zero):
    the tensor cores) and ``UTMALDG`` (TMA loads), the f32 attention
    library's tf32 ``HGMMA`` and ``UTMALDG`` and no ``LDL``/``STL``, and the
    RWKV6 library's ``UBLKCP`` or ``UTMALDG`` (bulk or TMA copies) and no
-   ``LDL``/``STL`` (no spill of the register-blocked state), or the script
-   stops.
+   ``LDL``/``STL`` (no spill of the register-blocked state), and the
+   ``quack_scan`` library's ``UBLKCP`` (its rows staged by bulk copies) and
+   ``UCGABAR_ARV``/``UCGABAR_WAIT`` (the cluster barriers around the
+   prefix's min in distributed shared memory), or the script stops.
 3. Kernel phase: ``quack_scan``'s CUDA result against its plain torch
    version on the card, both ``compute_lost`` settings, at the dense main
    path's shape (19, 19, 65536), ragged widths and R = 33 with random
-   real stakes, and in the lane form with B = 2 lanes of distinct real
-   stakes and thresholds; mismatches must be 0. Device time per call at
+   real stakes, in the lane form with B = 2 lanes of distinct real
+   stakes and thresholds, and with the first unquacked column on each
+   edge of the launch plan (column 0, the last column of CTA 0, the first
+   of CTA 1, the last of a tile, W - 1, none) at W = 6016, 65536 and
+   65531; mismatches must be 0. Device time per call at
    the dense shape and at the windowed shape (1, 19, 19, 6016) (CUDA
    events around a CUDA-graph replay that rotates over input sets
    totalling more than the 50 MB L2, so every call reads cold data), and
    at phase 8's lane shapes (3, 19, 19, 6016) and (6, 19, 19, 6016), the
-   plain version's time the same way, and the bytes bounds.
+   plain version's time the same way, the bytes bounds, and the launch
+   floor: an empty kernel in the same harness, at one CTA and at the
+   kernel's grid and cluster. Then what the launch plan rests on: the
+   dense width on the staged and the vector path in turns, and the dense
+   launch on 15 and 16 rows against 19.
 4. Path phase: BFT f = 1, M = 1,024, a crashed sender and a Byzantine
    receiver, run on CUDA and on an explicitly requested CPU, densely and
    windowed (W = 256, 16-round chunks: it grows and migrates to dense),
@@ -415,6 +424,126 @@ def bound_ms(s, r, w, compute_lost: bool, b: int = 1):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+def edge_inputs(w, where, gen, dev, compute_lost):
+    """One lane at (19, 19, w) whose rows 1.. are quacked up to the edge
+    ``where`` of the kernel's launch plan and unquacked there (row 0 17
+    columns later); returns (inputs, the edge's column)."""
+    from repro_torch.kernels.quack_scan import plan_quack_launch
+    plan = plan_quack_launch(1, 19, 19, w, True, compute_lost)
+    pos = {"column 0": 0, "last of CTA 0": plan.cols - 1,
+           "first of CTA 1": plan.cols, "last of a tile": plan.tile - 1,
+           "W - 1": w - 1, "none": w}[where]
+    a = lane_inputs(1, 19, 19, w, gen, dev)
+    a[0][..., :pos] = True
+    if pos < w:
+        a[0][:, 1:, :, pos] = False
+        a[0][:, 0, :, min(pos + 17, w - 1)] = False
+    return a, pos
+
+
+EDGES = ("column 0", "last of CTA 0", "first of CTA 1", "last of a tile",
+         "W - 1", "none")
+
+
+def launch_floor_ms(shape, compute_lost: bool):
+    """Device ms of an empty kernel in ``graph_ms``'s harness: at one CTA
+    of 32 threads, and at ``quack_scan``'s grid, cluster and threads for
+    ``shape`` (B, S, R, W)."""
+    import ctypes
+
+    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.quack_scan import plan_quack_launch
+    fn = load_library("quack_scan").quack_scan_floor_launch
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    plan = plan_quack_launch(*shape, True, compute_lost)
+
+    def empty(grid, cluster, threads):
+        rc = fn(*grid, cluster, threads,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"empty kernel: CUDA error {rc}")
+
+    return (median(graph_ms(empty, [((1, 1, 1), 1, 32)])),
+            median(graph_ms(empty, [(plan.grid, plan.cluster,
+                                     plan.threads)])))
+
+
+def forced_plan(path: str):
+    """``plan_quack_launch`` with its path replaced by ``path`` ("staged"
+    or "vector"), the rest of the plan derived as the plan derives it."""
+    import importlib
+    kq = importlib.import_module("repro_torch.kernels.quack_scan")
+    plan0 = kq.plan_quack_launch
+
+    def up(x, m):
+        return -(-x // m) * m
+
+    def plan(b, s, r, w, aligned, compute_lost=True):
+        base = plan0(b, s, r, w, aligned, compute_lost)
+        if path == "vector":
+            passes = -(-base.cols // (16 * 512))
+            threads = up(-(-base.cols // (16 * passes)), 32)
+            return dataclasses.replace(base, path=path, tile=16 * threads,
+                                       stages=0, threads=threads,
+                                       smem=up(4 * r, 16))
+        maps = 2 if compute_lost else 1
+        n = -(-base.cols // 1024)
+        tile = up(-(-base.cols // n), 16)
+        stages = min(-(-base.cols // tile), 4,
+                     112 * 1024 // (maps * r * tile))
+        return dataclasses.replace(
+            base, path=path, tile=tile, stages=stages,
+            threads=up(-(-tile // 4), 32),
+            smem=16 * stages + up(4 * r, 16) + stages * maps * r * tile)
+    return plan
+
+
+def plan_evidence(dev) -> None:
+    """Phase 3, continued: what the launch plan's choices rest on. At the
+    grown windowed widths 12,032 and 24,064 and at the dense width, each
+    path in turns (staged, vector, vector, staged), both ``compute_lost``
+    settings; and the dense launch on 15 rows (120 CTAs, fewer than the
+    132 SMs) and 16 against 19 (152 CTAs: some SMs run two)."""
+    import importlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import quack_reference
+    kq = importlib.import_module("repro_torch.kernels.quack_scan")
+    plan0 = kq.plan_quack_launch
+    gen = torch.Generator(device=dev).manual_seed(3)
+    try:
+        for rows, w in ((19, 12032), (19, 24064), (19, SHAPE[2]),
+                        (16, SHAPE[2]), (15, SHAPE[2])):
+            shape = (1, rows, SHAPE[1], w)
+            sets = input_sets(lane_inputs(*shape, gen, dev),
+                              lambda: lane_inputs(*shape, gen, dev))
+            for compute_lost in (True, False):
+                def kern(*a):
+                    return ops.quack_scan(*a, compute_lost=compute_lost)
+
+                want = quack_reference(*sets[0], compute_lost=compute_lost)
+                times = {}
+                for path in (("staged", "vector", "vector", "staged")
+                             if rows == SHAPE[0] else (None,)):
+                    kq.plan_quack_launch = (forced_plan(path) if path
+                                            else plan0)
+                    if compare(kern(*sets[0]), want)[0]:
+                        raise AssertionError(f"quack_scan on the {path} "
+                                             f"path disagrees")
+                    times.setdefault(path or plan0(
+                        *shape, True, compute_lost).path, []).append(
+                        median(graph_ms(kern, sets)) * 1e3)
+                    kq.plan_quack_launch = plan0
+                log(f"[kernel] quack_scan compute_lost={compute_lost} at "
+                    f"{shape}, {8 * rows} CTAs: " + "; ".join(
+                        f"{path} path {', '.join(f'{t:.2f}' for t in ts)} us"
+                        for path, ts in times.items()))
+            del sets
+    finally:
+        kq.plan_quack_launch = plan0
+
+
 def kernel_phase(dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import quack_reference
@@ -449,6 +578,25 @@ def kernel_phase(dev):
             bad += b
             worst = max(worst, wd)
 
+        # the first unquacked column on each edge of the launch plan:
+        # the windowed width, the dense one (8 tiles a CTA), ragged
+        for w in (WIN_SHAPE[3], SHAPE[2], SHAPE[2] - 5):
+            edge_bad = 0
+            for where in EDGES:
+                a, pos = edge_inputs(w, where, gen, dev, compute_lost)
+                got = ops.quack_scan(*a, compute_lost=compute_lost)
+                want = quack_reference(*a, compute_lost=compute_lost)
+                torch.cuda.synchronize()
+                b, wd = compare(got, want)
+                if got[2][0, 1].item() != pos:
+                    b += 1
+                edge_bad += b
+                worst = max(worst, wd)
+            log(f"[kernel] quack_scan compute_lost={compute_lost} (1, 19, "
+                f"19, {w}), first unquacked column at {', '.join(EDGES)} of "
+                f"the launch: {edge_bad} mismatches (tolerance 0)")
+            bad += edge_bad
+
         def kern(*a):
             return ops.quack_scan(*a, compute_lost=compute_lost)
 
@@ -475,30 +623,35 @@ def kernel_phase(dev):
             del sets
             bms, by, nbytes = bound_ms(*shape[1:], compute_lost, b=shape[0])
             ms, plain_ms = median(k_times), median(p_times)
+            one_cta, floor = launch_floor_ms(shape, compute_lost)
             log(f"[kernel] quack_scan compute_lost={compute_lost} at {shape} "
                 f"({label}): {ms * 1e3:.2f} us/call median of "
                 f"{len(k_times)} windows (min {k_times[0] * 1e3:.2f}, max "
                 f"{k_times[-1] * 1e3:.2f}); plain torch {plain_ms * 1e3:.2f}"
                 f" us (min {p_times[0] * 1e3:.2f}, max "
                 f"{p_times[-1] * 1e3:.2f}); bound {bms * 1e3:.2f} us by {by} "
-                f"({nbytes / 1e6:.1f} MB), {bms / ms:.1%} of it; "
-                f"mismatches {bad}")
-            timed[label] = (ms, plain_ms, bms, by)
+                f"({nbytes / 1e6:.1f} MB), {bms / ms:.1%} of it; launch "
+                f"floor (an empty kernel, same harness) {one_cta * 1e3:.2f} "
+                f"us at one CTA, {floor * 1e3:.2f} us at the kernel's grid "
+                f"and cluster; mismatches {bad}")
+            timed[label] = (ms, plain_ms, bms, by, floor)
         if bad:
             raise AssertionError(f"quack_scan disagrees with its plain "
                                  f"version in {bad} entries")
-        ms, plain_ms, bms, by = timed["dense"]
-        w_ms, w_plain, w_bms, _ = timed["windowed"]
+        ms, plain_ms, bms, by, floor = timed["dense"]
+        w_ms, w_plain, w_bms, _, w_floor = timed["windowed"]
         result[compute_lost] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                     bound_by=by, mismatches=bad,
-                                    max_abs_err=worst, windowed_ms=w_ms,
+                                    max_abs_err=worst, floor_ms=floor,
+                                    windowed_ms=w_ms,
                                     windowed_plain_ms=w_plain,
-                                    windowed_bound_ms=w_bms)
+                                    windowed_bound_ms=w_bms,
+                                    windowed_floor_ms=w_floor)
         for b in TOPO_LANES:
-            t_ms, t_plain, t_bms, _ = timed[f"topology, {b} links"]
+            t_ms, t_plain, t_bms, _, t_floor = timed[f"topology, {b} links"]
             result[compute_lost].update({
                 f"lanes{b}_ms": t_ms, f"lanes{b}_plain_ms": t_plain,
-                f"lanes{b}_bound_ms": t_bms})
+                f"lanes{b}_bound_ms": t_bms, f"lanes{b}_floor_ms": t_floor})
     return result
 
 
@@ -2437,7 +2590,7 @@ def kernel_name(mangled: str) -> str:
 
 def inspect_builds(libs: dict) -> None:
     """Phase 2, continued: each kernel's resources, and the design checks
-    of the attention and the RWKV6 libraries."""
+    of the attention, RWKV6 and QUACK libraries."""
     for name, lib in libs.items():
         kernel = None
         for line in cuobjdump("--dump-resource-usage", lib).splitlines():
@@ -2479,6 +2632,18 @@ def inspect_builds(libs: dict) -> None:
         raise AssertionError("rwkv6_scan: its SASS needs bulk or TMA copies "
                              "(UBLKCP or UTMALDG) and no local loads or "
                              "stores (LDL, STL: a spilled state)")
+    sass = cuobjdump("-sass", libs["quack_scan"])
+    ops = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT", "LDL", "STL")}
+    log(f"[build] quack_scan SASS: {ops['UBLKCP']} UBLKCP, "
+        f"{ops['UCGABAR_ARV']} UCGABAR_ARV and {ops['UCGABAR_WAIT']} "
+        f"UCGABAR_WAIT (cluster barrier), {ops['LDL']} LDL and {ops['STL']} "
+        f"STL")
+    if not (ops["UBLKCP"] and ops["UCGABAR_ARV"] and ops["UCGABAR_WAIT"]) \
+            or ops["LDL"] or ops["STL"]:
+        raise AssertionError("quack_scan: its SASS needs bulk copies "
+                             "(UBLKCP), the cluster barrier (UCGABAR_ARV, "
+                             "UCGABAR_WAIT) and no local loads or stores")
 
 
 def main() -> int:
@@ -2495,6 +2660,7 @@ def main() -> int:
 
     inspect_builds(build_all())
     kern = kernel_phase(dev)
+    plan_evidence(dev)
     t0 = time.perf_counter()
     api = api_phase(dev)
     log(f"[time] kernel-API phase {time.perf_counter() - t0:.1f} s")
@@ -2554,7 +2720,7 @@ def main() -> int:
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"],
             **{key: k[key] for key in k if key.startswith(
-                ("windowed_", "lanes"))}))
+                ("windowed_", "lanes", "floor_"))}))
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError("a kernel of the main path never launched")
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,7 @@
-// common.cuh: element conversions for the RWKV6 kernel, whose inputs are
-// f32 or bf16 and which computes in f32.
+// common.cuh: what more than one kernel of the package uses: element
+// conversions (the RWKV6 kernel's inputs are f32 or bf16, and it computes
+// in f32), and the mbarrier and bulk-copy helpers with which the RWKV6 and
+// QUACK kernels stage rows into shared memory.
 
 #pragma once
 
@@ -28,5 +30,44 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 // Narrowing rounds to nearest even, as torch's .to(torch.bfloat16) does.
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Makes the executing thread's mbarrier.init visible to the bulk copies
+// that complete on it; the other threads still need a barrier after it.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Contiguous bytes from global into shared memory; completion is counted in
+// bytes on the mbarrier. dst, src and bytes are multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 }  // namespace repro_torch

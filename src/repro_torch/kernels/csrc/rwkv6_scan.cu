@@ -64,7 +64,13 @@
 
 namespace {
 
+using repro_torch::bulk_load;
 using repro_torch::load4;
+using repro_torch::mbar_expect_tx;
+using repro_torch::mbar_fence_init;
+using repro_torch::mbar_init;
+using repro_torch::mbar_wait;
+using repro_torch::smem_u32;
 
 constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n / 2); }
 
@@ -82,40 +88,6 @@ struct Cfg {
   static constexpr int kMinBlocks = D == 64 ? 4 : 1;  // 128 registers at D = 64
   static_assert(kGroups <= 32 && 32 % kGroups == 0, "a column group within a warp");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// Contiguous bytes from global into shared memory; completion is counted in
-// bytes on the mbarrier. dst, src and bytes are multiples of 16.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // Sum p over the kGroups lanes g of a column group. p holds the lane's 8
 // columns with the four that bit 0 of g keeps first. Step s pairs the
@@ -179,7 +151,7 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restri
   };
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
     for (int c = 0; c < min(kStages, n_chunks); ++c) issue(c);
   }
   __syncthreads();

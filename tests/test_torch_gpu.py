@@ -42,6 +42,7 @@ from repro_torch.core import snapshot
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import \
     flash_attention as cuda_flash_attention
+from repro_torch.kernels.quack_scan import plan_quack_launch
 from repro_torch.kernels.quack_scan import quack_scan as cuda_quack_scan
 from repro_torch.kernels.ref import (mha_reference, mha_split_tf32,
                                      quack_reference, rwkv6_reference)
@@ -50,9 +51,12 @@ from repro_torch.obs.metrics import init_metrics_carry
 
 pytestmark = pytest.mark.gpu
 
-# (S, R, W): small grids, ragged widths, R = 33, the main path's shape
+# (S, R, W): small grids, ragged widths, R = 33, the main path's shape,
+# and R = 1, 19, 33, 257 at the windowed width, aligned and ragged
 SHAPES = [(3, 7, 64), (2, 16, 512), (4, 5, 128), (1, 33, 256), (3, 7, 100),
-          (2, 19, 777), (19, 19, 65536), (19, 19, 65535)]
+          (2, 19, 777), (19, 19, 65536), (19, 19, 65535), (4, 1, 6016),
+          (4, 1, 6015), (4, 19, 6015), (4, 33, 6016), (4, 33, 6015),
+          (4, 257, 6016), (4, 257, 6015)]
 
 
 def _need_cuda():
@@ -137,9 +141,11 @@ def test_cuda_run_matches_cpu_run():
 
 
 # the lane form: (B, S, R, W) with per-lane real stakes and thresholds, at
-# ragged widths and at the windowed full-size shape (W = 6,016)
+# ragged widths and at the windowed full-size shape (W = 6,016) with the
+# topology's and the applications' lane counts
 LANE_SHAPES = [(2, 3, 7, 100), (3, 2, 16, 512), (2, 19, 19, 777),
-               (2, 19, 19, 6016)]
+               (2, 19, 19, 6016), (1, 19, 19, 6016), (3, 19, 19, 6016),
+               (6, 19, 19, 6016)]
 
 
 @pytest.mark.parametrize("compute_lost", [True, False],
@@ -169,6 +175,115 @@ def test_cuda_lane_kernel_matches_plain(b, s, r, w, compute_lost):
             assert g is None
         else:
             assert g.dtype == w_.dtype and torch.equal(g.cpu(), w_)
+
+
+# the redesigned launch (kernels/quack_scan.py::plan_quack_launch): a
+# cluster of CTAs per (b, s) row, each owning ``cols`` columns in tiles of
+# ``tile``; the prefix is the cluster's min of its CTAs' first unquacked
+# columns. Fixtures put the first unquacked column on the plan's edges.
+def _boundaries(w, compute_lost=True):
+    plan = plan_quack_launch(1, 1, 19, w, True, compute_lost)
+    return {"col0": 0, "cta0_last": plan.cols - 1, "cta1_first": plan.cols,
+            "tile_last": plan.tile - 1, "tile_next": plan.tile,
+            "last": w - 1, "none": w}
+
+
+def _check_quack(args, compute_lost):
+    want = quack_reference(*args, compute_lost=compute_lost)
+    before = cuda_quack_scan.launches
+    got = ops.quack_scan(*(a.cuda() for a in args), compute_lost=compute_lost)
+    torch.cuda.synchronize()
+    assert cuda_quack_scan.launches == before + 1
+    for g, w_ in zip(got, want):
+        if w_ is None:
+            assert g is None
+        else:
+            assert g.dtype == w_.dtype and torch.equal(g.cpu(), w_)
+    return got
+
+
+def _lane_args(b, s, r, w, seed, p_claim=0.6):
+    rng = np.random.default_rng(seed)
+    claims = rng.random((b, s, r, w)) < p_claim
+    comps = rng.random((b, s, r, w)) < 0.2
+    stakes = (rng.random((b, r)) + 0.5).astype(np.float32)
+    share = np.linspace(0.45, 0.65, b, dtype=np.float32)
+    return claims, comps, stakes, stakes.sum(1) * share, \
+        stakes.sum(1) * (share - 0.25)
+
+
+@pytest.mark.parametrize("compute_lost", [True, False],
+                         ids=["lost", "no_lost"])
+@pytest.mark.parametrize("w", [6016, 65536, 65531])
+@pytest.mark.parametrize("where", list(_boundaries(6016)))
+def test_quack_prefix_at_the_launch_edges(where, w, compute_lost):
+    _need_cuda()
+    pos = _boundaries(w, compute_lost)[where]
+    claims, comps, stakes, qthr, dthr = _lane_args(1, 3, 19, w, seed=pos)
+    claims[..., :pos] = True          # quacked up to pos
+    if pos < w:
+        claims[:, 1:, :, pos] = False  # rows 1, 2: unquacked at pos
+        claims[:, 0, :, min(pos + 17, w - 1)] = False  # row 0: later
+    args = [torch.as_tensor(x) for x in (claims, comps, stakes, qthr, dthr)]
+    got = _check_quack(args, compute_lost)
+    assert got[2][0, 1].item() == pos and got[2][0, 2].item() == pos
+
+
+@pytest.mark.parametrize("compute_lost", [True, False],
+                         ids=["lost", "no_lost"])
+@pytest.mark.parametrize("w", list(range(8184, 8209)) + [1, 5, 16, 100,
+                                                         131072, 131088])
+def test_quack_every_width_mod_16_around_a_tile_edge(w, compute_lost):
+    """Every W % 16, staged and bytes, from 8,184 to 8,208, where a CTA's
+    columns pass one tile of 1,024 and split into two; W below one tile;
+    and widths whose CTAs take two and three vector passes."""
+    _need_cuda()
+    claims, comps, stakes, qthr, dthr = _lane_args(2, 3, 7, w, seed=w,
+                                                   p_claim=0.8)
+    claims[:, :, :4, : w // 2] = True
+    _check_quack([torch.as_tensor(x) for x in
+                  (claims, comps, stakes, qthr, dthr)], compute_lost)
+
+
+@pytest.mark.parametrize("compute_lost", [True, False],
+                         ids=["lost", "no_lost"])
+@pytest.mark.parametrize("w", [65536, 6016])
+def test_quack_scan_replays_in_a_graph_on_new_inputs(w, compute_lost):
+    _need_cuda()
+    make = [[torch.as_tensor(x).cuda() for x in _lane_args(2, 19, 19, w, seed)]
+            for seed in (0, 1, 2)]
+    static = [t.clone() for t in make[0]]
+    ops.quack_scan(*static, compute_lost=compute_lost)        # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ops.quack_scan(*static, compute_lost=compute_lost)
+    for fresh in make[1:]:
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        g.replay()
+        want = quack_reference(*fresh, compute_lost=compute_lost)
+        for a, b in zip(out, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("compute_lost", [True, False],
+                         ids=["lost", "no_lost"])
+@pytest.mark.parametrize("w", [6016, 65536, 65531])
+def test_quack_scan_is_one_kernel_a_call(w, compute_lost):
+    """No fill kernel beside it: one call, one kernel on the device."""
+    _need_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = [torch.as_tensor(x).cuda() for x in _lane_args(1, 19, 19, w, 3)]
+    ops.quack_scan(*args, compute_lost=compute_lost)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.quack_scan(*args, compute_lost=compute_lost)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert [e.name for e in kernels if "quack_scan" in e.name] \
+        and len(kernels) == 1, [e.name for e in kernels]
 
 
 # the windowed fixtures of tests/test_windowed.py, restated with the

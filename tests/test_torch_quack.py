@@ -7,6 +7,8 @@ tests run the port's plain torch version of ``quack_scan``; the CUDA
 kernel is held against it on the card in ``test_torch_gpu.py``.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from repro.kernels.ref import quack_reference as jax_quack_reference
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import quack_scan as kernels_quack_scan_op
 from repro_torch.kernels.quack_scan import quack_scan as cuda_quack_scan
+
+# the module (the package exports the op under the same name)
+kq = importlib.import_module("repro_torch.kernels.quack_scan")
 
 # (S, R, W, Pallas block) — the grid of tests/test_kernels.py plus ragged W
 SHAPES = [(3, 7, 64, 32), (2, 16, 512, 512), (4, 5, 128, 64),
@@ -82,6 +87,133 @@ def test_plain_quack_scan_matches_pallas_interpret(s, r, w, bw,
     _cmp(out[2], pr)
     if compute_lost:
         _cmp(out[1], lr)
+
+
+# ------------------------------- (a') the launch plan of the CUDA kernel
+# (B, S, R, W, pointers aligned): the windowed engine's shapes (one lane,
+# the topology's 3 and the reconciliation's 6), the dense shape, a
+# misaligned pointer, ragged and tiny widths, R = 1, 33, 257 and _MAX_R,
+# and the wrapper's limits
+PLAN_SHAPES = [(1, 19, 19, 6016, True), (3, 19, 19, 6016, True),
+               (6, 19, 19, 6016, True), (1, 19, 19, 65536, True),
+               (1, 19, 19, 6016, False), (1, 19, 19, 65535, True),
+               (1, 5, 33, 4099, True), (2, 3, 7, 100, True),
+               (1, 2, 19, 16, True), (1, 2, 1, 1, True),
+               (1, 3, 257, 4096, True), (1, 3, 257, 6015, True),
+               (2, 3, 7, 8192, True), (2, 3, 7, 8208, True),
+               (1, 19, 19, 1 << 20, True), (1, 3, kq._MAX_R, 4096, True),
+               (kq._MAX_B, kq._MAX_S, 19, 6016, True),
+               (1, 1, 1, 2 ** 31 - 16, True), (1, 1, 1, 2 ** 31 - 1, True)]
+
+
+def _tiles(plan, w):
+    """Every tile of the launch as [start, stop) columns of the row."""
+    for k in range(plan.cluster):
+        begin = k * plan.cols
+        n_cols = max(0, min(w - begin, plan.cols))
+        for t in range(0, n_cols, plan.tile):
+            yield begin + t, begin + min(n_cols, t + plan.tile)
+
+
+@pytest.mark.parametrize("compute_lost", [True, False],
+                         ids=["lost", "no_lost"])
+@pytest.mark.parametrize("b,s,r,w,aligned", PLAN_SHAPES,
+                         ids=[f"{b}x{s}x{r}x{w}{'' if a else '-plain'}"
+                              for b, s, r, w, a in PLAN_SHAPES])
+def test_plan_quack_launch_covers_every_column_once(b, s, r, w, aligned,
+                                                    compute_lost):
+    plan = kq.plan_quack_launch(b, s, r, w, aligned, compute_lost)
+    maps = 2 if compute_lost else 1
+    assert plan.cluster in (1, 2, 4, 8)
+    assert plan.grid == (plan.cluster, s, b)
+    assert plan.grid[0] % plan.cluster == 0
+    assert plan.grid[1] <= 65535 and plan.grid[2] <= 65535
+    assert 32 <= plan.threads <= 512 and plan.threads % 32 == 0
+    per_thread = 16 if plan.path == "vector" else 4
+    assert plan.tile <= per_thread * plan.threads < plan.tile + 32 * per_thread
+    assert plan.cols % 16 == 0 and plan.tile % 16 == 0
+    assert (plan.path == "staged") == (plan.stages > 0)
+    assert plan.threads <= (512 if plan.path == "vector" else 256)
+    # the columns: each once, in order, and every CTA but the last full
+    cover = list(_tiles(plan, w))
+    assert cover[0][0] == 0 and cover[-1][1] == w
+    assert all(a[1] == b_[0] for a, b_ in zip(cover, cover[1:]))
+    assert sum(stop - start for start, stop in cover) == w
+    assert (plan.cluster - 1) * plan.cols < w <= plan.cluster * plan.cols
+    # shared memory: the barriers, the stakes and the stages, within the
+    # card's 227 KB and the kernel's 200 KB; each barrier's bytes < 2**20
+    assert plan.smem == (16 * plan.stages + -(-4 * r // 16) * 16
+                         + plan.stages * maps * r * plan.tile)
+    assert plan.smem <= 200 * 1024 <= 232_448
+    assert r * plan.tile < 2 ** 20 or not plan.stages
+    assert 0 <= plan.stages <= 4
+    if not aligned or w % 16:
+        assert plan.path == "bytes"        # no 16-byte access off 16 bytes
+    if plan.stages:
+        assert plan.stages * maps * r * plan.tile <= 112 * 1024
+        assert plan.stages <= -(-plan.cols // plan.tile)
+    assert plan.path in kq.PATHS
+
+
+def test_plan_quack_launch_at_the_main_path_shapes():
+    """W = 6,016: 8 CTAs of 752 columns staged in one stage, 152 CTAs for
+    S = 19 (38 before the redesign); twice that width, two stages; dense
+    with the loss quorum 8 CTAs x 8 tiles of 1,024 columns in two stages,
+    without it one vector pass of 8,192 columns a CTA. W % 16 != 0 or a
+    misaligned pointer: bytes."""
+    for lost in (True, False):
+        win = kq.plan_quack_launch(1, 19, 19, 6016, True, lost)
+        assert (win.path, win.cluster, win.cols, win.tile, win.stages,
+                win.threads) == ("staged", 8, 752, 752, 1, 192)
+        assert win.grid[0] * win.grid[1] * win.grid[2] == 152
+        grown = kq.plan_quack_launch(1, 19, 19, 12032, True, lost)
+        assert (grown.path, grown.tile, grown.stages) == ("staged", 752, 2)
+    dense = kq.plan_quack_launch(1, 19, 19, 65536, True)
+    assert (dense.path, dense.cluster, dense.cols, dense.tile,
+            dense.stages, dense.threads) == ("staged", 8, 8192, 1024, 2, 256)
+    dense = kq.plan_quack_launch(1, 19, 19, 65536, True, False)
+    assert (dense.path, dense.cluster, dense.cols, dense.tile,
+            dense.threads) == ("vector", 8, 8192, 8192, 512)
+    for w in range(6000, 6017):
+        assert ((kq.plan_quack_launch(1, 19, 19, w, True).path == "staged")
+                == (w % 16 == 0))
+        assert kq.plan_quack_launch(1, 19, 19, w, False).path == "bytes"
+    # R too large to stage a tile of 128 columns: bytes
+    assert kq.plan_quack_launch(1, 3, kq._MAX_R, 4096, True).path == "bytes"
+
+
+def _edges(s, r, w):
+    """The first unquacked column at each edge of the kernel's launch."""
+    plan = kq.plan_quack_launch(1, s, r, w, True)
+    return {"col0": 0, "cta0_last": plan.cols - 1, "cta1_first": plan.cols,
+            "tile_last": plan.tile - 1, "tile_next": plan.tile,
+            "last": w - 1, "none": w}
+
+
+@pytest.mark.parametrize("compute_lost", [True, False],
+                         ids=["lost", "no_lost"])
+@pytest.mark.parametrize("w,bw", [(6016, 128), (16384, 512)])
+@pytest.mark.parametrize("where", list(_edges(2, 5, 6016)))
+def test_plain_quack_scan_matches_pallas_at_the_launch_edges(where, w, bw,
+                                                             compute_lost):
+    pos = _edges(2, 5, w)[where]
+    claims, comps, stakes = _bitmaps(2, 5, w, seed=pos)
+    claims[:, :, :pos] = True
+    if pos < w:
+        claims[1, :, pos] = False                # sender 1: unquacked at pos
+        claims[0, :, min(pos + 17, w - 1)] = False
+    q, d = float(stakes.sum()) * 0.6, float(stakes.sum()) * 0.3
+    out = ops.quack_scan(_t(claims), _t(comps), _t(stakes), q, d,
+                         compute_lost=compute_lost)
+    pk = pallas_quack_scan(jnp.asarray(claims), jnp.asarray(comps),
+                           jnp.asarray(stakes), q, d, block_w=bw,
+                           interpret=True, compute_lost=compute_lost)
+    assert int(out[2][1]) == pos
+    for got, want in zip(out, pk):
+        if want is None:
+            assert got is None
+        else:
+            _cmp(got, want)
 
 
 def test_plain_quack_scan_takes_tensor_thresholds():
