@@ -72,11 +72,13 @@ Phases, each of which raises on failure (exit code non-zero):
    program, and its peak device memory above what was allocated before.
 5w. Windowed at full width: the same link with ``window_slots="auto"``
    (W = 6,016) and 32-round chunks. A failure-free stream of M = 1,048,576
-   messages over ceil(M / 76) + 60 rounds, at K = 8 (the default) and at
-   K = 1, must end all delivered and quacked with one cross copy per
-   message, no resend and the GC frontier at M, the two runs bit for bit
-   equal, each within the dispatch contract; its planning time, and per
-   run the numbers of phase 5, are logged. The crash configuration of
+   messages over ceil(M / 76) + 60 rounds, at K = 8 (the default), at
+   K = 8 again with the first run's programs (the warm contract: it
+   captures nothing, equals the first run bit for bit and logs both
+   walls) and at K = 1, must end all delivered and quacked with one
+   cross copy per message, no resend and the GC frontier at M, the runs
+   bit for bit equal, each within the dispatch contract; its planning
+   time, and per run the numbers of phase 5, are logged. The crash configuration of
    phase 5, windowed, must give every output and metric of phase 5's
    dense crash run bit for bit; its growth events and frontier
    trajectory are logged. Each run must launch the kernel 2 x steps
@@ -187,6 +189,44 @@ Phases, each of which raises on failure (exit code non-zero):
    computed on the host. Each logs its wall, rounds/s and messages/s,
    dispatches, host syncs, captures and their host s, device time
    inside replays, peak memory and its ``plan_floors`` spans.
+
+9. Replay (``repro_torch.replay``) and the adversary palette
+   (``repro_torch.adversary``). 9a at the path size (BFT f = 1,
+   M = 1,024, W = 256, 16-round chunks), each item on CUDA and on the
+   CPU, against the port's numpy oracles: a link that grows and migrates
+   to dense, recorded (every checkpoint's state and inputs cuda == cpu,
+   the float32 stakes bit for bit), replayed from every checkpoint (==
+   the original, 0 captures); a crash, a heal and a drop schedule
+   injected (== ``replay_oracle`` and the from-scratch run with the
+   merged ``fail_schedule``); a chain recorded and replayed with its
+   upstream senders crashed (== ``replay_topology_oracle``); three forks
+   (each == its replay; a second fork set captures nothing);
+   remove / join a receiver and a stake re-weight replayed == from round
+   0; a ``RunTrace`` saved, loaded and resumed; a ``fail_schedule`` swap
+   written between two replays of one captured program must change what
+   it computes; disaster recovery with the crash injected by replay on
+   the JAX tests' fixtures == the static report; every adversary kind on
+   dense, windowed K = 1 and K = 8 == the oracle, retirement safe. 9b at
+   full width: phase 5s's lane 0 (M = 262,144, 3,510 rounds, W = 6,016)
+   recorded every 8 chunks, each checkpoint's host s and bytes from its
+   ``checkpoint`` span; a replay from the middle checkpoint == the
+   original with 0 captures; ``crash_fraction(19, 19, 0.3, seed=2)``
+   injected there == the from-scratch CUDA run of that schedule; four
+   forks as one 4-lane batch (baseline, that crash, receiver 18 removed,
+   receivers 0-5 stale), each == its own replay, and a second fork set
+   of the same shape capturing nothing. Every run's ``quack_scan``
+   launches are 2 x rounds + rotating chunks from the round it starts at;
+   they join the main path's count. The warm contract of the long stream
+   (the same K = 8 run twice: captures N, then 0, and each wall) runs in
+   phase 5w, where the stream runs.
+
+Programs outlive runs (``repro_torch.core.graphs``): a second run of a
+shape captures nothing. Every ``Measured`` run (phases 5, 5w, 5s, 5m, 8b)
+empties the program cache first, so its wall, capture time and peak
+memory are a cold run's, comparable with earlier PRs'; the phase-4 and
+8a checks compare every counter but the captures across runs whose
+layouts differ, and hold each run's captures to its traces and a warm
+rerun's to 0.
 
 The last lines are the ``kernels`` JSON line, and then
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -1258,17 +1298,46 @@ def _counters():
     return _engine_counts() + _launches()
 
 
+def _traces(first_uses: bool = False) -> int:
+    """The engine's windowed trace count (programs a run used for the
+    first time in their cached set), or with ``first_uses`` every
+    program's first uses, dense blocks included."""
+    from repro_torch.core import graphs, simulator
+    return (graphs.first_use_count() if first_uses
+            else simulator.chunk_trace_count())
+
+
+def _captures_are_traces(what: str, moved, traces: int) -> None:
+    """A run's captures are exactly the programs it used for the first
+    time in their cached sets (its windowed traces; every first use for a
+    dense run): nothing ran eagerly, and nothing was captured twice."""
+    if moved[2] != traces:
+        raise AssertionError(f"{what}: {moved[2]} captures for {traces} "
+                             f"programs used for the first time")
+
+
 def _metrics_twin(what: str, run, off_runs, off_moved) -> None:
-    """Phase 4, metrics on: ``run(sim_change, device)`` (a list of
-    ``C3BRun``) with ``collect_metrics`` on, on CUDA and on the CPU. The
-    CUDA run's outputs == the metrics-off CUDA runs ``off_runs``, its
-    metrics == the CPU run's and its own outputs', and it moves every
-    counter as the metrics-off run moved them (``off_moved``)."""
-    torch.cuda.synchronize()
-    before = _counters()
-    gpu = run("cuda")
-    torch.cuda.synchronize()
-    moved = tuple(a - b for a, b in zip(_counters(), before))
+    """Phase 4, metrics on: ``run(device)`` (a list of ``C3BRun``) with
+    ``collect_metrics`` on, on CUDA and on the CPU. The CUDA run's
+    outputs == the metrics-off CUDA runs ``off_runs``, its metrics == the
+    CPU run's and its own outputs', and it moves every counter but the
+    captures as the metrics-off run moved them (``off_moved``). Metrics
+    are part of a program set's layout, so the two runs capture their
+    own programs: each run's captures are its traces, and the metrics-on
+    run, run again, captures nothing and moves every other counter as
+    before (programs outlive runs)."""
+    dense = not off_runs[0].spec.window_slots
+
+    def counted():
+        torch.cuda.synchronize()
+        before, traces = _counters(), _traces(dense)
+        out = run("cuda")
+        torch.cuda.synchronize()
+        return out, tuple(a - b for a, b in zip(_counters(), before)), \
+            _traces(dense) - traces
+
+    gpu, moved, traces = counted()
+    _captures_are_traces(f"{what} metrics on", moved, traces)
     cpu = run("cpu")
     for b, (g, c, o) in enumerate(zip(gpu, cpu, off_runs)):
         lane = f"{what} metrics on, lane {b}"
@@ -1276,19 +1345,33 @@ def _metrics_twin(what: str, run, off_runs, off_moved) -> None:
         _assert_same(g.result, c.result, f"{lane} cuda vs cpu")
         _same_obs(g.result.obs, c.result.obs, f"{lane} cuda vs cpu")
         _obs_checks(g.result, lane)
-    if moved != off_moved:
+    if moved[:2] + moved[3:] != off_moved[:2] + off_moved[3:]:
         raise AssertionError(f"{what}: metrics on moved the counters "
                              f"{moved}, metrics off {off_moved}")
+    warm, warm_moved, _ = counted()
+    for b, (g, w) in enumerate(zip(gpu, warm)):
+        _assert_same(w.result, g.result, f"{what} warm lane {b}")
+        _same_obs(w.result.obs, g.result.obs, f"{what} warm lane {b}")
+    if warm_moved[2] or warm_moved[:2] + warm_moved[3:] != \
+            moved[:2] + moved[3:]:
+        raise AssertionError(f"{what}: the warm run moved {warm_moved}, "
+                             f"the cold run {moved}")
     log(f"[path] {what} with collect_metrics: == metrics off, cuda == cpu "
         f"in every ObsMetrics field of {len(gpu)} lanes, each == its "
         f"outputs; counters (dispatches, host syncs, captures, replays, "
-        f"launches, without the loss quorum, skipped) {moved} == metrics "
-        f"off; lane 0: {_obs_checks(gpu[0].result, what)}")
+        f"launches, without the loss quorum, skipped) {moved}, == metrics "
+        f"off {off_moved} but for the captures; captures == traces "
+        f"({traces}); run again: {warm_moved[2]} captures, the rest the "
+        f"same; lane 0: {_obs_checks(gpu[0].result, what)}")
 
 
 class Measured:
-    """Runs ``fn`` as one measured run: launch counts at 0 and peak memory
-    reset just before it; afterwards its wall time, peak device memory
+    """Runs ``fn`` as one measured run: the program cache emptied (unless
+    ``cold`` is False: a cold run captures its programs, as every run did
+    before programs outlived runs, so its wall, capture time and peak
+    memory stay comparable with earlier PRs'), launch counts at 0 and
+    peak memory reset just before it; afterwards its wall time, peak
+    device memory
     above what was allocated before it, engine counters, the device time
     spent inside graph replays (CUDA events around each replay of a
     captured program, summed; the graphs' own gaps between kernels count
@@ -1297,9 +1380,11 @@ class Measured:
     (``build_spec``) time of the same specs measured beforehand, is taken
     off the wall: the entry points plan inside the run."""
 
-    def __init__(self, fn, plan_s: float = 0.0):
+    def __init__(self, fn, plan_s: float = 0.0, cold: bool = True):
         from repro_torch.core import graphs
         torch.cuda.synchronize()
+        if cold:
+            graphs.clear_programs()
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1467,16 +1552,17 @@ def _plan_s(sim, scenarios) -> float:
     return time.perf_counter() - t0
 
 
-def _full_run(name: str, sim, fails, plan_s=None):
+def _full_run(name: str, sim, fails, plan_s=None, cold: bool = True):
     """One full-size run through ``run_picsou`` (``Measured``, its
-    planning time taken off); logs its numbers, checks the launch and
-    dispatch contracts and that it delivered and quacked every
-    message."""
+    planning time taken off, cold unless ``cold`` is False); logs its
+    numbers, checks the launch and dispatch contracts and that it
+    delivered and quacked every message."""
     from repro_torch.core import RSMConfig, run_picsou
     cfg = RSMConfig.bft(6)
     if plan_s is None:
         plan_s = _plan_s(sim, [fails])
-    run_m = Measured(lambda: run_picsou(cfg, cfg, sim, fails), plan_s)
+    run_m = Measured(lambda: run_picsou(cfg, cfg, sim, fails), plan_s,
+                     cold=cold)
     run = run_m.result
     _check_launches(run.spec, name)
     res = run.result
@@ -1545,10 +1631,12 @@ def windowed_phase(dense_crash, steps_crash: int):
         f" (dense at this M: "
         f"{dataclasses.replace(spec, window_slots=0).scan_state_nbytes()})")
     long = {}
-    for k in (8, 1):
-        run, run_m = _full_run(f"windowed long K={k}",
-                               dataclasses.replace(sim, superchunk=k),
-                               FailureScenario.none(), plan_s)
+    # K = 8 cold, the same run again warm (phase 9b's warm contract: the
+    # programs outlive the run), then K = 1 cold
+    for k, cold in ((8, True), ("8 warm", False), (1, True)):
+        run, run_m = _full_run(f"windowed long K={k}", dataclasses.replace(
+            sim, superchunk=8 if k == "8 warm" else k),
+            FailureScenario.none(), plan_s, cold=cold)
         res = run.result
         if int(res.gc_frontiers[-1]) != M_LONG or res.window_growth_events:
             raise AssertionError(f"windowed long: frontier ends at "
@@ -1559,6 +1647,24 @@ def windowed_phase(dense_crash, steps_crash: int):
         launches[1] += no_lost
         long[k] = (res, run_m.wall / STEPS_LONG * 1e3, run_m)
         del run
+    cold_m, warm_m = long[8][2], long["8 warm"][2]
+    n = _assert_same(long["8 warm"][0], long[8][0],
+                     "windowed long K=8 warm vs cold")
+    if warm_m.counts[2] or cold_m.counts[2] <= 0 or (
+            warm_m.counts[:2] + warm_m.counts[3:]
+            != cold_m.counts[:2] + cold_m.counts[3:]):
+        raise AssertionError(f"windowed long warm contract: cold "
+                             f"{cold_m.counts}, warm {warm_m.counts}")
+    log(f"[windowed long] warm contract: the same K=8 run twice in a row, "
+        f"== bit for bit ({n} fields); captures {cold_m.counts[2]}, then "
+        f"{warm_m.counts[2]}; wall {cold_m.wall:.3f} s cold (capturing "
+        f"{cold_m.capture_s:.3f} s), {warm_m.wall:.3f} s warm "
+        f"({cold_m.wall - warm_m.wall:+.3f} s, "
+        f"{STEPS_LONG / cold_m.wall:.1f} -> {STEPS_LONG / warm_m.wall:.1f}"
+        f" rounds/s); peak memory {cold_m.peak_mib:.1f} MiB cold, "
+        f"{warm_m.peak_mib:.1f} MiB warm (above {warm_m.held_mib:.1f} MiB "
+        f"held, the cached programs' included)")
+    del long["8 warm"]
     n = _assert_same(long[8][0], long[1][0], "windowed long K=8 vs K=1")
     res = long[8][0]
     log(f"[windowed long] K=8 == K=1 bit for bit ({n} fields); final W "
@@ -1921,10 +2027,10 @@ def profile_phase(dense_round_ms: float, long_round_ms: float,
     cfg = RSMConfig.bft(6)
     crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
     spec = build_spec(cfg, cfg, SimConfig(
-        n_msgs=SHAPE[2], steps=12 * 32 + 1, window=4, phi=32), crash)
-    added = {"dense": [profile_window("dense", spec, 1, 12, dense_round_ms)]}
+        n_msgs=SHAPE[2], steps=7 * 32 + 1, window=4, phi=32), crash)
+    added = {"dense": [profile_window("dense", spec, 1, 7, dense_round_ms)]}
     spec = dataclasses.replace(spec, collect_metrics=True)
-    added["dense"].append(profile_window("dense, metrics on", spec, 1, 12,
+    added["dense"].append(profile_window("dense, metrics on", spec, 1, 7,
                                          dense_round_ms))
     spec = build_spec(cfg, cfg, SimConfig(
         n_msgs=SHAPE[2], steps=3 * 8 * CHUNK + 1, window=4, phi=32,
@@ -1945,9 +2051,9 @@ def profile_phase(dense_round_ms: float, long_round_ms: float,
     # frontier the host saw before the last drain: at W = 65,536 (on a
     # stream of 131,072), not at 6,016
     spec = build_spec(cfg, cfg, SimConfig(
-        n_msgs=SHAPE[2] * 2, steps=4 * 8 * CHUNK + 1, window=4, phi=32,
+        n_msgs=SHAPE[2] * 2, steps=3 * 8 * CHUNK + 1, window=4, phi=32,
         window_slots=SHAPE[2], chunk_steps=CHUNK, superchunk=8))
-    profile_window("windowed K=8, W=65536", spec, 1, 4, long_round_ms)
+    profile_window("windowed K=8, W=65536", spec, 1, 3, long_round_ms)
 
     def plan(steps):
         return build_spec(cfg, cfg, SimConfig(
@@ -2116,7 +2222,9 @@ def _topology_path(name: str, base) -> None:
             topo = dataclasses.replace(base, sim=dataclasses.replace(
                 base.sim, superchunk=k, collect_metrics=collect))
             what = f"topology {name} K={k} metrics {collect}"
+            traces = _traces()
             gpu, moved, tracer = _traced(lambda: run_topology(topo))
+            _captures_are_traces(what, moved, _traces() - traces)
             line = _check_topology_counts([gpu], moved, tracer, what)
             cpu = run_topology(topo, device="cpu")
             n = _same_topology(gpu, cpu, f"{what} cuda vs cpu")
@@ -2128,16 +2236,21 @@ def _topology_path(name: str, base) -> None:
                               f"{what} {lname} cuda vs cpu")
                     _obs_checks(lr.result, f"{what} {lname}")
             runs[(k, collect)] = (gpu, moved)
+    # a floor callback runs K = 1 programs whatever the superchunk, which
+    # is not part of a program set's layout: the K = 8 runs find their
+    # programs captured by the K = 1 runs; metrics on are their own sets
     first, moved = runs[(1, False)]
     for key, (res, m) in runs.items():
         _same_topology(res, first, f"topology {name} {key} vs K=1 off")
-        if m != moved:
+        if m[:2] + m[3:] != moved[:2] + moved[3:] or (
+                key[0] == 8 and m[2]):
             raise AssertionError(f"topology {name} {key}: counters {m}, "
                                  f"K=1 metrics off {moved}")
     res0 = next(iter(first.links.values())).result
     log(f"[topology path] {name}: {len(first.links)} links, cuda == cpu "
         f"({n} fields) == numpy mirror, K=1 == K=8, metrics on == off "
-        f"(each link's histogram == its latency array's), same counters; "
+        f"(each link's histogram == its latency array's), same counters "
+        f"but the captures (captures == traces; K=8 runs: 0); "
         f"{line}; delivered prefixes {first.delivered_prefixes()}, "
         f"floors of the last link "
         f"{first[base.link_names[-1]].commit_floors[:6].tolist()}..., "
@@ -2158,6 +2271,7 @@ def _floor_in_place() -> None:
     def floors(t, bases):
         return np.full(1, 0 if t < opens else spec.m, dtype=np.int64)
 
+    graphs.clear_programs()          # cold: the run captures its two
     before = (graphs.capture_count(), graphs.replay_count())
     gpu = _run_windowed_batch([spec], torch.device("cuda"), floors)[0]
     captures, replays = (a - b for a, b in zip(
@@ -2539,6 +2653,507 @@ def topology_full_phase() -> list:
     return launches
 
 
+# ------------------------------------------------------------ phase 9
+# phase 9a: the path-size link of phase 4 (BFT f = 1, M = 1,024, W = 256,
+# 16-round chunks); the adversary sweep runs ADV_STEPS rounds (the numpy
+# oracle's cost grows with them); phase 9b: phase 5s's lane 0 at full
+# width, recorded every REPLAY_EVERY chunks
+REPLAY_SIM = dict(n_msgs=1024, steps=120, window_slots=256, chunk_steps=16)
+ADV_STEPS = 120
+REPLAY_EVERY = 8
+RESULT_FIELDS = ("quack_time", "deliver_time", "retry", "recv_has")
+
+
+def _counted(fn, launches, expect=None, what: str = ""):
+    """``fn()`` with ``quack_scan``'s counters at 0 just before it; its
+    launches are added to ``launches`` (the main path's) and, given
+    ``expect`` (total, without the loss quorum), must equal it with none
+    discarded. Returns (result, (captures, replays), launches)."""
+    from repro_torch.core import graphs
+    torch.cuda.synchronize()
+    _reset_launches()
+    before = (graphs.capture_count(), graphs.replay_count())
+    out = fn()
+    torch.cuda.synchronize()
+    total, no_lost, skipped = _launches()
+    launches[0] += total - no_lost
+    launches[1] += no_lost
+    if expect is not None and ((total, no_lost) != expect or skipped):
+        raise AssertionError(f"{what}: launches {(total, no_lost)} "
+                             f"({skipped} discarded), expected {expect}")
+    moved = tuple(a - b for a, b in zip(
+        (graphs.capture_count(), graphs.replay_count()), before))
+    return out, moved, (total, no_lost)
+
+
+def _from(spec, t: int, lanes_runs: int = 1):
+    """The launch contract of ``lanes_runs`` windowed runs of ``spec``
+    from chunk boundary ``t``: two launches a round (one without the loss
+    quorum) and one more without it per rotating chunk, whatever the
+    lanes."""
+    rounds = spec.steps - t
+    rotating = -(-rounds // spec.chunk_steps) - 1
+    return (lanes_runs * (2 * rounds + rotating),
+            lanes_runs * (rounds + rotating))
+
+
+def _same_results(a, b, what: str, frontiers: bool = True) -> int:
+    """What the replay contract holds equal: the outputs, every round
+    metric and (``frontiers``) the frontier trajectory, final width and
+    growth events. (``send_step`` is not part of it: from the round-0
+    checkpoint the JAX package's resume, and so the port's, reports
+    none; ROADMAP.md queue 3.)"""
+    n = 0
+    for f in RESULT_FIELDS + (("gc_frontiers",) if frontiers else ()):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: the runs differ in {f}")
+        n += 1
+    for f in a.metrics._fields:
+        if not np.array_equal(getattr(a.metrics, f),
+                              getattr(b.metrics, f)):
+            raise AssertionError(f"{what}: the runs differ in metric {f}")
+        n += 1
+    if frontiers and (a.final_window_slots != b.final_window_slots
+                      or a.window_growth_events != b.window_growth_events):
+        raise AssertionError(f"{what}: the runs differ in their window")
+    return n
+
+
+def _same_as_oracle(res, ref, what: str, frontiers: bool = True) -> None:
+    """An engine result against the port's numpy oracle (``RefResult``):
+    every output, the wire metrics and the frontier trajectory."""
+    for f in RESULT_FIELDS:
+        if not np.array_equal(getattr(res, f), getattr(ref, f)):
+            raise AssertionError(f"{what}: differs from the oracle in {f}")
+    for f in ("cross_msgs", "intra_msgs", "resends"):
+        if not np.array_equal(getattr(res.metrics, f), getattr(ref, f)):
+            raise AssertionError(f"{what}: differs from the oracle in "
+                                 f"metric {f}")
+    if frontiers and not np.array_equal(res.gc_frontiers, ref.gc_frontiers):
+        raise AssertionError(f"{what}: differs from the oracle in its "
+                             f"frontiers")
+
+
+def _replay_link(launches) -> None:
+    """9a, one link: record the path phase's growing windowed link on
+    CUDA and on the CPU (the checkpoints field by field, the stakes bit
+    for bit), replay from every checkpoint (across the growth and the
+    dense migration) with no capture, and injected replays (a crash, a
+    heal, a drop schedule) against the oracle and the from-scratch run
+    of the merged schedule."""
+    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
+                                  build_spec, graphs)
+    from repro_torch.core.simulator import _run_windowed_batch
+    from repro_torch.replay import (Injection, record_simulation, replay,
+                                    replay_oracle)
+    from repro_torch.replay.replay import (_normalize_injections,
+                                           build_fail_schedule)
+    cfg = RSMConfig.bft(1)
+    sim = SimConfig(**REPLAY_SIM)
+    dev = torch.device("cuda")
+    grows = FailureScenario(crash_s=(2, -1, -1, -1),
+                            byz_recv_drop=(False, False, True, False))
+    spec = build_spec(cfg, cfg, sim, grows)
+    graphs.clear_programs()
+    (res, trace), moved, _ = _counted(lambda: record_simulation(spec),
+                                      launches, _from(spec, 0), "record")
+    cres, ctrace = record_simulation(spec, device="cpu")
+    _assert_same(res, cres, "recorded cuda vs cpu")
+    for c, cc in zip(trace.checkpoints, ctrace.checkpoints):
+        for part in ("state", "fails"):
+            for f, x in getattr(c, part)._asdict().items():
+                y = getattr(getattr(cc, part), f)
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(f"checkpoint {c.t}: {part}.{f} "
+                                         f"cuda != cpu")
+    widths = sorted({int(c.window_slots) for c in trace.checkpoints})
+    if len(widths) < 3 or not res.window_growth_events[-1].dense_migration:
+        raise AssertionError(f"9a: the link should grow and migrate; "
+                             f"checkpoint widths {widths}")
+    _same_as_oracle(res, replay_oracle(trace), "recorded link")
+    captures = graphs.capture_count()
+    for t in trace.boundaries().tolist():
+        rr, _, _ = _counted(lambda: replay(trace, t), launches,
+                            _from(spec, t), f"replay from {t}")
+        _same_results(rr[0], res, f"replay from {t}")
+        _assert_same(rr[0], replay(ctrace, t, device="cpu")[0],
+                     f"replay from {t} cuda vs cpu")
+    if graphs.capture_count() != captures:
+        raise AssertionError("9a: a replay captured a program")
+    log(f"[replay path] link M={spec.m}, W={spec.window_slots}, "
+        f"{spec.chunk_steps}-round chunks: recorded on cuda == cpu "
+        f"(every checkpoint's state and inputs bit for bit), == the numpy "
+        f"oracle; {moved[0]} programs captured; {len(trace.checkpoints)} "
+        f"checkpoints at widths {widths}; the replay from each == the "
+        f"original (across growth {growth(res)}), == its cpu replay, 0 "
+        f"captures")
+
+    free = build_spec(cfg, cfg, sim)
+    part = build_spec(cfg, cfg, sim, FailureScenario(
+        byz_recv_drop=(True, False, False, False)))
+    drops = FailureScenario(drop_pair=tuple(
+        tuple(l == 1 and j in (0, 2) for j in range(4)) for l in range(4)))
+    cases = [("crash", free, [Injection(32, FailureScenario(
+                 crash_s=(-1, 32, -1, -1)))]),
+             ("heal", part, [Injection(32, FailureScenario.none())]),
+             ("drop schedule", free, [Injection(32, drops),
+                                      Injection(96, FailureScenario.none())])]
+    for name, base, inj in cases:
+        (orig, tr), _, _ = _counted(lambda: record_simulation(base),
+                                    launches, _from(base, 0))
+        (ri,), _, _ = _counted(lambda: replay(tr, 32, inj), launches,
+                               _from(base, 32), f"injected {name}")
+        _same_as_oracle(ri, replay_oracle(tr, inj), f"injected {name}")
+        schedule, _ = build_fail_schedule(tr, _normalize_injections(tr, inj))
+        scratch, _, _ = _counted(lambda: _run_windowed_batch(
+            [base], dev, fail_schedule=schedule), launches, _from(base, 0))
+        _assert_same(ri, scratch[0], f"injected {name} vs from scratch")
+        _assert_same(ri, replay(tr, 32, inj, device="cpu")[0],
+                     f"injected {name} cuda vs cpu")
+        if all(np.array_equal(getattr(ri, f), getattr(orig, f))
+               for f in RESULT_FIELDS):
+            raise AssertionError(f"injected {name}: changed nothing")
+        log(f"[replay path] injected {name} at round 32: == the numpy "
+            f"oracle of the merged schedule, == the from-scratch run with "
+            f"that fail_schedule, == cpu; resends "
+            f"{orig.total_resends()} -> {ri.total_resends()}, delivery "
+            f"round {orig.delivery_step()} -> {ri.delivery_step()}")
+
+
+def _replay_topology_and_forks(launches) -> None:
+    """9a: a chain recorded and replayed with an injection against the
+    topology oracle; three forks, each == its own replay; a trace saved,
+    loaded and resumed; reconfigurations replayed bit for bit."""
+    import tempfile
+
+    from repro_torch.adversary import (join_receiver, remove_receiver,
+                                       stale_ackers)
+    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
+                                  build_spec)
+    from repro_torch.core.simulator import spec_with_quorum
+    from repro_torch.replay import (ForkSpec, Injection, RunTrace,
+                                    fork_whatif, record_simulation,
+                                    record_topology, replay,
+                                    replay_topology, replay_topology_oracle)
+    from repro_torch.topology import Topology
+    cfg = RSMConfig.bft(1)
+    sim = SimConfig(**REPLAY_SIM)
+    topo = Topology.chain(["a", "b", "c"], cfg, SimConfig(**TOPO_SIM))
+    (r0, trace), _, _ = _counted(lambda: record_topology(topo), launches)
+    inj = {"a->b": [Injection(48, FailureScenario(crash_s=(48,) * 4))]}
+    ri, _, _ = _counted(lambda: replay_topology(trace, 48, inj), launches)
+    ref = replay_topology_oracle(trace, inj)
+    _same_topology(ri, ref, "chain injected replay vs oracle", engine=False)
+    _same_topology(ri, replay_topology(trace, 48, inj, device="cpu"),
+                   "chain injected replay cuda vs cpu")
+    rr = replay_topology(trace, 48)
+    _same_topology(rr, r0, "chain unchanged replay vs original")
+    if ri["b->c"].delivered_prefix() >= r0["b->c"].delivered_prefix():
+        raise AssertionError("chain: the upstream crash cut nothing")
+    log(f"[replay path] chain a-b-c: replay with the upstream link's "
+        f"senders crashed at 48 == replay_topology_oracle == cpu (floors "
+        f"included); delivered prefix of b->c {r0['b->c'].delivered_prefix()}"
+        f" -> {ri['b->c'].delivered_prefix()}; unchanged replay == original")
+
+    free = build_spec(cfg, cfg, sim)
+    (res, tr), _, _ = _counted(lambda: record_simulation(free), launches)
+    forks = [ForkSpec("baseline"),
+             ForkSpec("crash", [Injection(32, FailureScenario(
+                 crash_s=(-1, 32, -1, -1)))]),
+             ForkSpec("stale", [Injection(48, stale_ackers(4, (1, 2)))])]
+    report, _, _ = _counted(lambda: fork_whatif(tr, 32, forks), launches,
+                            _from(free, 32), "fork")
+    for fs in forks:
+        solo = replay(tr, 32, fs.injections)[0]
+        _same_results(report[fs.name].results[0], solo,
+                      f"fork {fs.name} vs its replay", frontiers=False)
+    again, _, _ = _counted(lambda: fork_whatif(tr, 48, [
+        ForkSpec("x", [Injection(48, FailureScenario(
+            crash_s=(48, -1, -1, -1)))]), ForkSpec("y"),
+        ForkSpec("z", [Injection(64, stale_ackers(4, (3,)))])]), launches)
+    if again.chunk_traces:
+        raise AssertionError(f"a second fork set of the same shape "
+                             f"captured {again.chunk_traces} programs")
+    log(f"[replay path] fork_whatif of 3 forks from round 32: each fork "
+        f"== its replay; chunk_traces {report.chunk_traces} cold, "
+        f"{again.chunk_traces} for a second set; rows {report.rows()}")
+
+    reconfigs = [
+        ("remove receiver 3", free, [remove_receiver(
+            4, 3, 32, stakes_r=(1.0,) * 4, quack_thresh=2.0,
+            dup_thresh=2.0)]),
+        ("join receiver 3", spec_with_quorum(
+            build_spec(cfg, cfg, sim, FailureScenario(
+                crash_r=(-1, -1, -1, 0))), stakes_r=(1.0, 1.0, 1.0, 0.0)),
+         [join_receiver(4, 3, 48, stakes_r=(1.0,) * 4, quack_thresh=2.0,
+                        dup_thresh=2.0)]),
+        ("stake re-weight", free, [Injection(
+            32, stakes_r=(1.5, 1.0, 1.0, 0.75), quack_thresh=2.25)])]
+    for name, base, inj in reconfigs:
+        (_, tr), _, _ = _counted(lambda: record_simulation(base), launches)
+        at = inj[0].at_step
+        ri, _, _ = _counted(lambda: replay(tr, at, inj), launches)
+        scratch, _, _ = _counted(lambda: replay(tr, 0, inj), launches)
+        _same_results(ri[0], scratch[0], f"{name} vs from scratch")
+        _assert_same(ri[0], replay(tr, at, inj, device="cpu")[0],
+                     f"{name} cuda vs cpu")
+    names = ", ".join(name for name, _, _ in reconfigs)
+    log(f"[replay path] reconfigurations ({names}) replayed from their "
+        f"boundary == from round 0 == cpu")
+
+    with tempfile.TemporaryDirectory() as out:
+        path = f"{out}/trace.npz"
+        tr.save(path)
+        loaded = RunTrace.load(path)
+    for c, cl in zip(tr.checkpoints, loaded.checkpoints):
+        for part in ("state", "fails"):
+            for f, x in getattr(c, part)._asdict().items():
+                y = getattr(getattr(cl, part), f)
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(f"trace round trip: {part}.{f}")
+    inj = reconfigs[-1][2]
+    _assert_same(replay(loaded, 32, inj)[0], replay(tr, 32, inj)[0],
+                 "loaded trace resumed")
+    log("[replay path] RunTrace save -> load -> resume: every checkpoint "
+        "bit for bit (float32 stakes included), the resumed run == the "
+        "in-memory trace's")
+
+
+def _swap_in_place(launches) -> None:
+    """A fail_schedule swap written between two replays of one captured
+    program must change what it computes."""
+    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
+                                  build_spec, graphs)
+    from repro_torch.core.simulator import (_run_windowed_batch,
+                                            spec_with_failures)
+    cfg = RSMConfig.bft(1)
+    spec = build_spec(cfg, cfg, SimConfig(n_msgs=256, steps=120, window=1,
+                                          window_slots=256, chunk_steps=8))
+    crashed = spec_with_failures(spec, FailureScenario(crash_s=(24,) * 4))
+
+    def schedule(t):
+        return [crashed] if t == 24 else None
+
+    graphs.clear_programs()
+    gpu, (captures, replays), _ = _counted(lambda: _run_windowed_batch(
+        [spec], torch.device("cuda"), fail_schedule=schedule), launches,
+        _from(spec, 0), "swap in place")
+    gpu = gpu[0]
+    cpu = _run_windowed_batch([spec], torch.device("cpu"),
+                              fail_schedule=schedule)[0]
+    _assert_same(gpu, cpu, "swap in place cuda vs cpu")
+    cross = gpu.metrics.cross_msgs
+    if (captures != 2 or replays != spec.steps // 8
+            or not cross[16:24].sum() or cross[24:].sum()):
+        raise AssertionError(f"swap in place: {captures} captures, "
+                             f"{replays} replays, copies after the swap "
+                             f"{int(cross[24:].sum())}")
+    log(f"[replay path] a fail_schedule swap written in place between two "
+        f"replays of one captured program: {captures} programs captured, "
+        f"{replays} replays; {int(cross[16:24].sum())} copies in the chunk "
+        f"before round 24, 0 after (every sender crashed); == the CPU run")
+
+
+def _replay_apps_and_adversaries(launches) -> None:
+    """9a: disaster recovery with the crash injected by replay on the JAX
+    tests' fixtures == the static report; every adversary kind on dense,
+    windowed K = 1 and K = 8 == the numpy oracle."""
+    from repro_torch.adversary import (ADVERSARY_KINDS, adversary_scenario,
+                                       assert_safe_retirement,
+                                       quorum_budget)
+    from repro_torch.apps import run_disaster_recovery
+    from repro_torch.core import RSMConfig, SimConfig, build_spec
+    from repro_torch.core.refsim import run_reference
+    from repro_torch.core.simulator import run_simulation
+    cfg = RSMConfig.bft(1)
+    dr_sim, dr, _ = _app_fixtures()
+    for name, crash_at, fails in dr:
+        if crash_at is None:
+            continue
+        kw = dict(backups=sorted({"backup-0", "backup-1"} | set(fails)),
+                  crash_at=crash_at, backup_failures=fails)
+        static = run_disaster_recovery(cfg, cfg, dr_sim, **kw)
+        inj, _, _ = _counted(lambda: run_disaster_recovery(
+            cfg, cfg, dr_sim, inject_via_replay=True, **kw), launches)
+        cpu = run_disaster_recovery(cfg, cfg, dr_sim, inject_via_replay=True,
+                                    device="cpu", **kw)
+        for other, label in ((static, "static"), (cpu, "cpu")):
+            if (inj.elected != other.elected
+                    or inj.phase1_prefixes != other.phase1_prefixes
+                    or inj.final_prefixes != other.final_prefixes
+                    or inj.converged != other.converged
+                    or not np.array_equal(inj.recovered_log,
+                                          other.recovered_log)):
+                raise AssertionError(f"disaster recovery {name} injected "
+                                     f"!= {label}")
+        _same_topology(inj.phase1, cpu.phase1, f"dr {name} injected cpu")
+        log(f"[replay path] disaster recovery {name}: the crash injected at "
+            f"round {inj.injected_at} by replay == the static report == "
+            f"cpu; elected {inj.elected}, prefixes {inj.phase1_prefixes}")
+    paths = {"dense": dict(n_msgs=1024, steps=ADV_STEPS),
+             "windowed K=1": dict(REPLAY_SIM, steps=ADV_STEPS,
+                                  superchunk=1),
+             "windowed K=8": dict(REPLAY_SIM, steps=ADV_STEPS,
+                                  superchunk=8)}
+    for kind in ADVERSARY_KINDS:
+        sc = adversary_scenario(kind, 4, 4, seed=0)
+        ref = run_reference(build_spec(cfg, cfg, SimConfig(
+            **paths["windowed K=1"]), sc))
+        if ref.retired_undelivered:
+            raise AssertionError(f"{kind}: the oracle retired an "
+                                 f"undelivered message")
+        for path, kw in paths.items():
+            spec = build_spec(cfg, cfg, SimConfig(**kw), sc)
+            res, _, _ = _counted(lambda: run_simulation(spec), launches)
+            _same_as_oracle(res, ref, f"{kind} {path}",
+                            frontiers=path != "dense")
+            if path != "dense" and quorum_budget(spec).provable:
+                assert_safe_retirement(spec, res)
+            if path == "windowed K=8":
+                _assert_same(res, run_simulation(spec, device="cpu"),
+                             f"{kind} {path} cuda vs cpu")
+        log(f"[replay path] adversary {kind}: dense, windowed K=1 and K=8 "
+            f"== the numpy oracle ({ADV_STEPS} rounds), K=8 == cpu; "
+            f"retirement safe")
+
+
+def replay_path_phase() -> list:
+    """Phase 9a; returns the main path's launch counts."""
+    launches = [0, 0]
+    _replay_link(launches)
+    _replay_topology_and_forks(launches)
+    _swap_in_place(launches)
+    _replay_apps_and_adversaries(launches)
+    return launches
+
+
+def replay_full_phase(f: int = 6, m: int = SWEEP_M,
+                      steps: int = SWEEP_STEPS) -> list:
+    """Phase 9b at full width: phase 5s's lane 0 (BFT ``f``, ``m``
+    messages over ``steps`` rounds) recorded every ``REPLAY_EVERY``
+    chunks; a replay from the middle checkpoint == the original with 0
+    captures; the crash injected there == the from-scratch run of that
+    schedule; four forks from there as one batch, each == its own
+    replay, and a second fork set of the same shape capturing nothing.
+    Returns the main path's launch counts."""
+    from repro_torch.adversary import remove_receiver, stale_ackers
+    from repro_torch.core import (FailureScenario, RSMConfig, SimConfig,
+                                  build_spec, graphs)
+    from repro_torch.core.simulator import (_run_windowed_batch,
+                                            spec_with_failures)
+    from repro_torch.obs.tracer import SpanTracer, tracing
+    from repro_torch.replay import (ForkSpec, Injection, fork_whatif,
+                                    record_simulation, replay)
+    cfg = RSMConfig.bft(f)
+    reps = cfg.n                          # replicas a side
+    launches = [0, 0]
+    sim = SimConfig(n_msgs=m, steps=steps, window=4, phi=32,
+                    window_slots="auto", chunk_steps=CHUNK)
+    spec = build_spec(cfg, cfg, sim)
+    graphs.clear_programs()
+    tracer = SpanTracer()
+    t0 = time.perf_counter()
+    with tracing(tracer):
+        (res, trace), moved, _ = _counted(
+            lambda: record_simulation(spec, every=REPLAY_EVERY), launches,
+            _from(spec, 0), "9b record")
+    wall = time.perf_counter() - t0
+    spans = [s for s in tracer.spans if s.name == "checkpoint"]
+    ck_s = [s.dur_ns / 1e9 for s in spans]
+    ck_b = [s.args["nbytes"] for s in spans]
+    if not (res.deliver_time >= 0).all():
+        raise AssertionError("9b: the recorded run did not deliver all")
+    log(f"[replay full] BFT f={f} <-> f={f}, M={m}, {steps} rounds, "
+        f"W={spec.window_slots}, {CHUNK}-round chunks, recorded every "
+        f"{REPLAY_EVERY} chunks: {wall:.3f} s wall ({steps / wall:.1f}"
+        f" rounds/s, K=1 programs), {moved[0]} captures; "
+        f"{len(spans)} checkpoints, host s each median "
+        f"{np.median(ck_s):.4f} (min {min(ck_s):.4f}, max {max(ck_s):.4f},"
+        f" total {sum(ck_s):.3f}), {ck_b[0]} bytes each "
+        f"({ck_b[0] / 2 ** 20:.1f} MiB; {sum(ck_b) / 2 ** 20:.1f} MiB in "
+        f"all)")
+    mid = int(trace.boundaries()[len(trace.checkpoints) // 2])
+    t0 = time.perf_counter()
+    rr, (captures, _), _ = _counted(lambda: replay(trace, mid), launches,
+                                    _from(spec, mid), "9b replay")
+    wall = time.perf_counter() - t0
+    n = _assert_same(rr[0], res, "9b replay from the middle")
+    if captures:
+        raise AssertionError(f"9b: the replay captured {captures} programs")
+    log(f"[replay full] replay from round {mid} == the original bit for "
+        f"bit ({n} fields), 0 captures, {wall:.3f} s wall "
+        f"({(steps - mid) / wall:.1f} rounds/s)")
+
+    crash = FailureScenario.crash_fraction(reps, reps, 0.3, seed=2,
+                                           at_step=mid)
+    inj = [Injection(mid, crash)]
+    t0 = time.perf_counter()
+    ri, (captures, _), _ = _counted(lambda: replay(trace, mid, inj),
+                                    launches, _from(spec, mid), "9b inject")
+    wall = time.perf_counter() - t0
+    crashed = spec_with_failures(spec, crash)
+
+    def schedule(t):
+        return [crashed] if t == mid else None
+
+    scratch, _, _ = _counted(lambda: _run_windowed_batch(
+        [spec], torch.device("cuda"), fail_schedule=schedule), launches,
+        _from(spec, 0), "9b from scratch")
+    n = _assert_same(ri[0], scratch[0], "9b injected vs from scratch")
+    log(f"[replay full] crash_fraction(0.3, seed=2) injected at round {mid}: "
+        f"== the from-scratch run with that fail_schedule ({n} fields); "
+        f"{wall:.3f} s wall, {captures} captures (growth "
+        f"{growth(ri[0])}); resends {ri[0].total_resends()}, delivered "
+        f"{int((ri[0].deliver_time >= 0).sum())} of {m}")
+
+    liars = tuple(range(cfg.u))           # receivers 0-5 at f = 6
+    forks = [ForkSpec("baseline"), ForkSpec("crash", inj),
+             ForkSpec(f"remove receiver {reps - 1}", [remove_receiver(
+                 reps, reps - 1, mid, stakes_r=spec.stakes_r,
+                 quack_thresh=spec.quack_thresh,
+                 dup_thresh=spec.dup_thresh)]),
+             ForkSpec(f"stale 0-{cfg.u - 1}", [Injection(
+                 mid, stale_ackers(reps, liars))])]
+    t0 = time.perf_counter()
+    report, _, _ = _counted(lambda: fork_whatif(trace, mid, forks),
+                            launches, _from(spec, mid), "9b fork")
+    fork_wall = time.perf_counter() - t0
+    for fs in forks:
+        solo = ri[0] if fs.name == "crash" else replay(
+            trace, mid, fs.injections)[0]
+        _same_results(report[fs.name].results[0], solo,
+                      f"9b fork {fs.name} vs its replay", frontiers=False)
+    widths = {e.new_w for e in report.forks[0].results[0]
+              .window_growth_events if e.step >= mid}
+    forks2 = [ForkSpec("baseline"), ForkSpec("crash", inj),
+              ForkSpec("remove receiver 0", [remove_receiver(
+                  reps, 0, mid, stakes_r=spec.stakes_r,
+                  quack_thresh=spec.quack_thresh,
+                  dup_thresh=spec.dup_thresh)]),
+              ForkSpec("stake re-weight", [Injection(
+                  mid, stakes_r=(2.0,) + (1.0,) * (reps - 1),
+                  quack_thresh=spec.quack_thresh + 1)])]
+    t0 = time.perf_counter()
+    again, _, _ = _counted(lambda: fork_whatif(trace, mid, forks2),
+                           launches, _from(spec, mid), "9b fork again")
+    again_wall = time.perf_counter() - t0
+    if report.chunk_traces > len(widths) + 2 or again.chunk_traces:
+        raise AssertionError(f"9b forks: {report.chunk_traces} captures "
+                             f"cold over {len(widths) + 1} widths, "
+                             f"{again.chunk_traces} for the second set")
+    rows = {r["fork"]: (r["delivered"], r["resends"], r["delivery_step"])
+            for r in report.rows()}
+    log(f"[replay full] fork_whatif of 4 forks from round {mid} as one "
+        f"4-lane batch: each fork == its own replay; {fork_wall:.3f} s "
+        f"wall; chunk_traces {report.chunk_traces} cold (the crash fork "
+        f"grows the shared window through {sorted(widths)}: a rotating "
+        f"program a width and the final chunk), {again.chunk_traces} for a "
+        f"second set of the same shape ({again_wall:.3f} s); (delivered, "
+        f"resends, delivery round) {rows}")
+    return launches
+
+
 def build_all() -> dict:
     """Phase 2: every source, one nvcc each, all started together. Returns
     {source name: library path}."""
@@ -2695,18 +3310,23 @@ def main() -> int:
     t_launches = topology_full_phase()
     log(f"[time] topology full-width phase {time.perf_counter() - t1:.1f} s"
         f"; phase 8 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    r_launches = replay_path_phase()
+    log(f"[time] replay path phase {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    f_launches = replay_full_phase()
+    log(f"[time] replay full-width phase {time.perf_counter() - t1:.1f} s"
+        f"; phase 9 {time.perf_counter() - t0:.1f} s")
 
     # the main path's launches: the full-size runs, dense and windowed,
-    # the sweep, the same runs with metrics on, and the full-width
-    # topologies and applications
-    rows = [("quack_scan", dict(kern[True], launches=launches[0]
-                                + w_launches[0] + s_launches[0]
-                                + m_launches[0] + t_launches[0],
-                                library_ms=None)),
-            ("quack_scan_no_lost", dict(kern[False], launches=launches[1]
-                                        + w_launches[1] + s_launches[1]
-                                        + m_launches[1] + t_launches[1],
-                                        library_ms=None)),
+    # the sweep, the same runs with metrics on, the full-width topologies
+    # and applications, and the recorded, replayed and forked runs
+    main = [launches, w_launches, s_launches, m_launches, t_launches,
+            r_launches, f_launches]
+    rows = [("quack_scan", dict(kern[True], launches=sum(
+                 x[0] for x in main), library_ms=None)),
+            ("quack_scan_no_lost", dict(kern[False], launches=sum(
+                x[1] for x in main), library_ms=None)),
             ("flash_attention", api["flash_attention"]),
             ("flash_attention_f32", api["flash_attention_f32"]),
             ("rwkv6_chunked", api["rwkv6_chunked"])]

@@ -18,9 +18,16 @@ until filled. With ``use_reference=True`` the same procedure runs on the
 pure-numpy multi-link oracle instead of the engine; the two must produce
 identical reports on every fixture (``tests/test_torch_apps.py``).
 
-The crash is a static schedule. Injecting it into a recorded failure-free
-stream (``inject_via_replay``) comes with the port of the replay
-subsystem; until then asking for it raises ``NotImplementedError``.
+With ``inject_via_replay=True`` the crash is no longer a static
+schedule: phase 1 streams failure-free (on the primary side) while
+``repro_torch.replay`` records chunk-boundary checkpoints, and the crash
+is *injected* at the last boundary before ``crash_at``: a mid-stream
+swap of the ``FailArrays`` the already-captured chunk programs read. The
+report is bit-identical to the static-schedule run (a crash at round
+``t`` only affects rounds ``>= t``), and the returned ``phase1_trace``
+holds the pre-crash checkpoints, so what-if studies can fork alternative
+futures (different crash times, no crash at all) from the same shared
+prefix (``repro_torch.replay.fork_whatif``).
 """
 
 from __future__ import annotations
@@ -30,10 +37,12 @@ from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
+from ..core.gc import snap_to_boundary
 from ..core.simulator import _resolve_device
 from ..core.types import FailureScenario, RSMConfig, SimConfig
+from ..replay.trace import Injection as _Injection
 from ..topology import (RefTopologyResult, Topology, TopologyResult,
-                        run_topology, run_topology_reference)
+                        link_specs, run_topology, run_topology_reference)
 
 __all__ = ["RecoveryReport", "run_disaster_recovery"]
 
@@ -49,8 +58,9 @@ class RecoveryReport:
     recovered_log: np.ndarray           # the elected backup's log (payloads)
     phase1: Union[TopologyResult, RefTopologyResult]
     phase2: Optional[Union[TopologyResult, RefTopologyResult]]
-    # replay-injection provenance, kept for the JAX package's report
-    # shape: None until the replay subsystem is ported
+    # replay-injection provenance (inject_via_replay only): the chunk
+    # boundary the crash was injected at, and the recorded pre-crash
+    # trace for what-if forking (engine runs only).
     injected_at: Optional[int] = None
     phase1_trace: Optional[object] = None
 
@@ -75,6 +85,17 @@ def _catchup_steps(m: int, n_s: int, window: int) -> int:
     return m // max(n_s * max(window, 1), 1) + 16 * n_s + 48
 
 
+def _oracle_with_injection(topo: Topology, at_step: int,
+                           scenarios) -> RefTopologyResult:
+    """Numpy oracle of the injected run: the merged schedule from
+    scratch, base masks until ``at_step``, crash masks after."""
+
+    def schedule(t):
+        return scenarios if t == at_step else None
+
+    return run_topology_reference(topo, fail_schedule=schedule)
+
+
 def run_disaster_recovery(
         primary_cfg: RSMConfig, backup_cfg: RSMConfig,
         sim: SimConfig,
@@ -91,14 +112,13 @@ def run_disaster_recovery(
 
     backup_failures maps backup name -> receiver-side scenario on its
     link (crashed/byzantine backup replicas make the backups genuinely
-    diverge); the primary's ``crash_at`` is overlaid on every link as a
-    static schedule. ``inject_via_replay=True`` raises
-    ``NotImplementedError`` until the replay subsystem is ported.
+    diverge); the primary's ``crash_at`` is overlaid on every link, as
+    a static schedule by default, or as a replay-injected mid-stream
+    event (``inject_via_replay=True``): the failure-free stream is
+    recorded with checkpoints and the crash swapped in at the last chunk
+    boundary before ``crash_at``, which produces the identical report
+    and also returns the pre-crash trace for what-if forking.
     """
-    if inject_via_replay:
-        raise NotImplementedError(
-            "run_disaster_recovery: inject_via_replay is not ported yet; "
-            "it comes with the replay subsystem (ROADMAP queue 1 item 6)")
     if len(backups) < 2:
         raise ValueError("disaster recovery needs >= 2 backups (the "
                          "elected one must have peers to catch up)")
@@ -109,22 +129,45 @@ def run_disaster_recovery(
         raise ValueError(f"payloads has {len(payloads)} entries, stream "
                          f"carries {m}")
     if use_reference:
+        dev = None
         run = run_topology_reference
     else:
         dev = _resolve_device(device)
 
         def run(topo):
             return run_topology(topo, device=dev)
+    base_fails = {
+        b: (backup_failures or {}).get(b, FailureScenario.none())
+        for b in backups}
     fails = {
-        b: _with_primary_crash(
-            (backup_failures or {}).get(b, FailureScenario.none()),
-            primary_cfg.n, crash_at)
+        b: _with_primary_crash(base_fails[b], primary_cfg.n, crash_at)
         for b in backups}
 
     # --- phase 1: primary streams its log until it crashes ---------------
-    topo1 = Topology.fanout("primary", list(backups), primary_cfg, sim,
-                            failures=fails, backup_cfg=backup_cfg)
-    r1 = run(topo1)
+    injected_at = None
+    trace = None
+    if inject_via_replay and crash_at is not None:
+        # the crash is an *event*: record the no-crash stream, then swap
+        # the crash schedule in at the last boundary before it hits.
+        topo1 = Topology.fanout("primary", list(backups), primary_cfg,
+                                sim, failures=base_fails,
+                                backup_cfg=backup_cfg)
+        injected_at = snap_to_boundary(
+            crash_at, link_specs(topo1)[0].chunk_steps)
+        injections = {
+            f"primary->{b}": [_Injection(injected_at, fails[b])]
+            for b in backups}
+        if use_reference:
+            r1 = _oracle_with_injection(topo1, injected_at,
+                                        [fails[b] for b in backups])
+        else:
+            from ..replay import record_topology, replay_topology
+            _, trace = record_topology(topo1, device=dev)
+            r1 = replay_topology(trace, injected_at, injections, device=dev)
+    else:
+        topo1 = Topology.fanout("primary", list(backups), primary_cfg,
+                                sim, failures=fails, backup_cfg=backup_cfg)
+        r1 = run(topo1)
     prefixes = {b: r1[f"primary->{b}"].delivered_prefix() for b in backups}
 
     # --- failover: elect the most-caught-up backup (name tiebreak) -------
@@ -153,4 +196,5 @@ def run_disaster_recovery(
         np.array_equal(recovered, payloads[:e_prefix]))
     return RecoveryReport(
         elected=elected, phase1_prefixes=prefixes, final_prefixes=final,
-        converged=converged, recovered_log=recovered, phase1=r1, phase2=r2)
+        converged=converged, recovered_log=recovered, phase1=r1, phase2=r2,
+        injected_at=injected_at, phase1_trace=trace)

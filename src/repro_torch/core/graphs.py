@@ -1,11 +1,13 @@
 """Captured programs: the simulator's chunk, superchunk and dense-block
-bodies as CUDA graphs.
+bodies as CUDA graphs, kept across runs.
 
-The JAX package compiles each of these bodies once per run with
-``jax.jit`` and dispatches it as one program. Here a body is plain
-PyTorch, ``body(state, t0) -> (new_state, outputs)``, and a run keeps its
-programs in a ``Programs`` set, keyed as the JAX package keys its per-run
-programs (window width, rounds a chunk, chunks a span, rotation):
+The JAX package compiles each of these bodies once with ``jax.jit`` and
+keeps the compiled programs in ``functools.lru_cache(maxsize=64)``
+caches, so a second run of a shape compiles nothing. Here a body is
+plain PyTorch, ``body(state, t0) -> (new_state, outputs)``, and the
+programs of one state layout live in a ``Programs`` set, keyed within
+the set as the JAX package keys its programs (window width, rounds a
+chunk, chunks a span, rotation):
 
 - on a CUDA device each body is captured once into a
   ``torch.cuda.CUDAGraph`` over static buffers: the carried state, the
@@ -16,14 +18,26 @@ programs (window width, rounds a chunk, chunks a span, rotation):
   kernel. There is no fallback: a capture that fails raises.
 - on the CPU the same body runs eagerly, and nothing is captured.
 
+**Lifetime.** Sets outlive runs: ``program_set(key, build)`` keeps up to
+``CACHE_SETS`` of them in a process-wide cache, one per state layout (the
+simulator's key: device, lanes, the shape-and-schedule part of the spec,
+window width, metrics), and evicts the least recently used one by count
+only. A run that takes a set copies its initial (or resumed, padded or
+migrated) state into the set's buffers with ``Programs.load``, and its
+per-lane inputs into the tensors the set keeps, in place: a graph reads
+them by address, so they are never rebound. When a window grows or
+migrates, the run takes the set of the new layout; the old width's set
+stays cached, as the JAX package keeps every width compiled.
+``clear_programs`` empties the cache (the counterpart of
+``jax.clear_caches()``), dropping every graph with its memory pool.
+
 A capture executes nothing, so the body is first run once on clones of
 the state (its warm-up: it loads the kernels' modules and allocates the
 matrix products' workspaces at these shapes) and the result thrown away.
 Warm-ups and captures run on one side stream per device: cuBLAS keeps a
 workspace per stream for the life of the process.
-The graphs of one set share one memory pool; ``release`` drops them
-(with their pool) before the state changes layout, when the window grows
-or migrates to the dense layout.
+The graphs of one set share one memory pool, which lives as long as the
+set.
 
 The carried state is a ``NamedTuple`` of tensors, or a tuple of them
 (the simulator's ``(SimState, MetricsCarry)`` when it collects metrics).
@@ -39,19 +53,26 @@ whose results a span's overflow guard discarded.
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Callable, Dict, Hashable, List, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels.quack_scan import quack_scan as _quack_scan
 
-__all__ = ["Programs", "capture_count", "replay_count"]
+__all__ = ["Programs", "program_set", "clear_programs", "CACHE_SETS",
+           "capture_count", "replay_count", "first_use_count"]
 
 # the kernel wrapper's launch counters a replay must move
 _COUNTERS = ("launches", "launches_no_lost")
 _CAPTURES = [0]
 _REPLAYS = [0]
+_FIRST_USES = [0]
 _STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+# sets kept across runs, least recently used first
+CACHE_SETS = 16
+_SETS: "OrderedDict[Hashable, Programs]" = OrderedDict()
 
 
 def capture_count() -> int:
@@ -62,6 +83,35 @@ def capture_count() -> int:
 def replay_count() -> int:
     """CUDA graph replays so far (one per dispatch on a CUDA device)."""
     return _REPLAYS[0]
+
+
+def first_use_count() -> int:
+    """Programs run for the first time in their set so far: a capture on
+    a CUDA device, the first eager call on the CPU."""
+    return _FIRST_USES[0]
+
+
+def program_set(key: Hashable, build: Callable[[], "Programs"]
+                ) -> "Programs":
+    """The cached set of layout ``key``, or ``build()``'s, cached. The
+    cache holds ``CACHE_SETS`` sets and drops the least recently used
+    one beyond that (a run that still holds it keeps using it)."""
+    ps = _SETS.get(key)
+    if ps is not None:
+        _SETS.move_to_end(key)
+        return ps
+    ps = _SETS[key] = build()
+    while len(_SETS) > CACHE_SETS:
+        _SETS.popitem(last=False)
+    return ps
+
+
+def clear_programs() -> None:
+    """Empty the cache: every cached set drops its graphs (and so their
+    memory pools); the next run of any shape captures again."""
+    for ps in _SETS.values():
+        ps.release()
+    _SETS.clear()
 
 
 @dataclasses.dataclass(eq=False)
@@ -85,11 +135,22 @@ Body = Callable[[tuple, torch.Tensor], Tuple[tuple, List[torch.Tensor]]]
 
 
 def _leaves(state) -> List[torch.Tensor]:
-    """The tensors of a state tree (tuples and ``NamedTuple``s of
-    tensors), in order."""
-    if isinstance(state, torch.Tensor):
+    """The leaves of a state tree (tuples and ``NamedTuple``s of tensors
+    or numpy arrays), in order."""
+    if isinstance(state, (torch.Tensor, np.ndarray)):
         return [state]
     return [leaf for part in state for leaf in _leaves(part)]
+
+
+def copy_into(dst, src) -> None:
+    """Copy the leaves of tree ``src`` (tensors or numpy arrays) into
+    those of tree ``dst``, in place."""
+    dst, src = _leaves(dst), _leaves(src)
+    if len(dst) != len(src):
+        raise ValueError(f"copy_into: {len(src)} leaves into {len(dst)}")
+    for d, x in zip(dst, src):
+        d.copy_(x if isinstance(x, torch.Tensor)
+                else torch.from_numpy(np.array(x)))
 
 
 def _clone(state):
@@ -102,18 +163,19 @@ def _clone(state):
 
 
 class Programs:
-    """The programs of one run at one state layout.
+    """The programs of one state layout, kept across runs.
 
     ``state`` is the carried state (a tree of tensors); on a CUDA device
     its tensors are the static buffers every replay reads and
     rewrites, and they must not alias each other. ``keep`` holds the other
-    tensors the bodies read (failure arrays, the run's constants): a
-    graph reads them by address, so they live as long as the set.
+    tensors the bodies read (per-lane inputs, constants): a graph reads
+    them by address, so they live as long as the set, and a run writes
+    its own values into them in place.
     """
 
     def __init__(self, state, device: torch.device, keep=()):
         self.state = state
-        self._keep = keep
+        self.keep = keep
         self._cuda = device.type == "cuda"
         self._progs: Dict[Hashable, _Captured] = {}
         if self._cuda:
@@ -126,6 +188,12 @@ class Programs:
     def __contains__(self, key: Hashable) -> bool:
         return key in self._progs
 
+    def load(self, state) -> None:
+        """Copy ``state`` (a tree of the set's structure, of tensors or
+        numpy arrays) into the state buffers, in place and in stream
+        order: the graphs keep reading the same addresses."""
+        copy_into(self.state, state)
+
     def run(self, key: Hashable, body: Body, t: int) -> List[torch.Tensor]:
         """Run program ``key`` (``body``, captured at its first use on a
         CUDA device) from round ``t``; the new state replaces ``state``.
@@ -133,14 +201,18 @@ class Programs:
         graph's own output buffers, rewritten by the next replay: read
         them (in stream order) before the next ``run``."""
         if not self._cuda:
-            self._progs.setdefault(key, None)
+            if key not in self._progs:
+                self._progs[key] = None
+                _FIRST_USES[0] += 1
             self.state, outputs = body(self.state,
                                        torch.tensor(t, dtype=torch.int32))
             return outputs
+        # before a capture too: its warm-up runs at this round (the set's
+        # last round, from another run, may lie past this program's span)
+        self._t0.fill_(t)
         prog = self._progs.get(key)
         if prog is None:
             prog = self._progs[key] = self._capture(key, body)
-        self._t0.fill_(t)
         prog.graph.replay()
         _REPLAYS[0] += 1
         _add_counts(prog.launches)
@@ -159,7 +231,8 @@ class Programs:
         _quack_scan.launches_skipped += per_chunk["launches"] * chunks
 
     def release(self) -> None:
-        """Drop every captured graph (and so its memory pool)."""
+        """Drop every captured graph (and so its memory pool);
+        ``clear_programs`` does this for every cached set."""
         self._progs.clear()
 
     def _capture(self, key: Hashable, body: Body) -> _Captured:
@@ -180,4 +253,5 @@ class Programs:
         _add_counts({name: before[name] - n
                      for name, n in _counts().items()})
         _CAPTURES[0] += 1
+        _FIRST_USES[0] += 1
         return _Captured(key, graph, list(outputs), launches)

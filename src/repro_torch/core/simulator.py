@@ -43,7 +43,13 @@ Two engines run the same step, each over one lane per spec
 
 On a CUDA device every chunk, superchunk and dense block is a captured
 CUDA graph, replayed once a dispatch (``graphs.Programs``); on the CPU
-the same functions run eagerly.
+the same functions run eagerly. The programs of a state layout (lanes,
+the spec's shape and schedules, width, metrics) live in a set cached
+across runs (``_layout_set``), so a second run of a shape captures
+nothing; each run copies its state and per-lane inputs into the set's
+tensors in place. The windowed loop also records chunk-boundary
+checkpoints (``ChunkCheckpoint``), resumes from one, and swaps per-lane
+inputs mid-run: the hooks of ``repro_torch.replay``.
 
 With ``collect_metrics`` a ``obs.metrics.MetricsCarry`` rides beside the
 state through every program (``update_metrics`` after each round,
@@ -81,22 +87,22 @@ import torch
 
 from ..obs.metrics import (MetricsBlock, MetricsCarry, init_metrics_carry,
                            metrics_updater, migrate_dense_metrics,
-                           obs_from_final, pad_metrics, rotate_metrics,
-                           snapshot_metrics, stack_blocks)
+                           obs_from_final, pad_metrics, resume_metrics_carry,
+                           rotate_metrics, snapshot_metrics, stack_blocks)
 from ..obs.tracer import obs_begin, obs_end
 from . import scheduler as sched
 from .gc import gc_frontier_device, grow_window, resolve_window_slots
-from .graphs import Programs
+from .graphs import Programs, copy_into, program_set
 from .quack import (claim_bitmask, missing_below_horizon,
                     stake_quorum_bitmap, weighted_quorum_prefix)
 from .snapshot import WINDOW_FILLS as _WINDOW_FILLS
-from .snapshot import PinnedDrain, device_state, pad_window, to_host
+from .snapshot import PinnedDrain, pad_window, to_host
 from .snapshot import window_shapes as _window_shapes
 from .types import (FailureScenario, RSMConfig, SimConfig,
                     lcm_scale_factors)
 
 __all__ = ["SimSpec", "SimResult", "SimState", "StepMetrics", "FailArrays",
-           "ChunkQueue", "WindowGrowthEvent",
+           "ChunkQueue", "ChunkCheckpoint", "WindowGrowthEvent",
            "build_spec", "run_simulation", "run_simulation_batch",
            "require_uniform_batch", "spec_failures",
            "spec_with_failures", "spec_with_quorum",
@@ -236,6 +242,45 @@ class ChunkQueue(NamedTuple):
     recv_has: torch.Tensor      # (B, n_r, W)
     base: torch.Tensor          # (B,) int32 — window base before rotation
     count: torch.Tensor         # (B,) int32 — slots retired by this rotation
+
+
+class ChunkCheckpoint(NamedTuple):
+    """Host-side snapshot of a windowed run at a chunk boundary.
+
+    Captured by ``_run_windowed_batch`` (when given a ``recorder``) right
+    before dispatching the chunk that starts at round ``t``, and accepted
+    back as its ``resume`` argument: resuming from a checkpoint runs the
+    exact remaining chunk stream (the same cached programs, the same
+    overflow and growth decisions, the same drains) and is bit-identical
+    to the original run when the failure schedule is unchanged. Every
+    leaf is host-side numpy (``state`` int32/bool, ``fails`` int32/bool
+    and the float32 stakes and thresholds, moved as their bits), so a
+    device round trip is exact and the tuple serialises losslessly
+    (``repro_torch.replay``). Fields in the JAX package's order.
+    """
+
+    t: int                       # next round to execute
+    window_slots: int            # window width in force entering the chunk
+    bases: np.ndarray            # (B,) per-lane window base
+    state: SimState              # (B, ...) state, numpy leaves
+    fails: FailArrays            # (B, ...) inputs in force, numpy leaves
+    floors: np.ndarray           # (B,) commit floors in force
+    out_quack: np.ndarray        # (B, n_s, M) drained retired prefix
+    out_deliver: np.ndarray      # (B, M)
+    out_retry: np.ndarray        # (B, n_s, M)
+    out_recv: np.ndarray         # (B, n_r, M)
+    # per-chunk (B, c) metric blocks of the rounds already run, shared by
+    # reference with the engine loop; ``metrics()`` concatenates them
+    metric_parts: Tuple[StepMetrics, ...]
+    bases_hist: np.ndarray       # (n_boundaries_so_far, B)
+    growth_events: Tuple["WindowGrowthEvent", ...]
+    # (B, M) dispatch-round mirror (-1 = not yet dispatched); None (a
+    # trace written before it existed) falls back to the schedule rounds
+    send_step: Optional[np.ndarray] = None
+
+    def metrics(self) -> StepMetrics:
+        """Concatenated (B, t) per-round metrics up to this checkpoint."""
+        return _concat_metrics(len(self.bases), list(self.metric_parts))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -841,22 +886,19 @@ def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
 
     The rounds run as programs of ``DENSE_BLOCK`` rounds (and one tail
     program for the rest): a captured CUDA graph replayed once a block on
-    a CUDA device (``graphs.Programs``), the same block eagerly on the
-    CPU. This is the port's counterpart of the JAX package's one compiled
-    ``lax.scan`` over the run. Each block's round metrics are copied
-    into one device tensor; the run never waits for the device until
-    the result comes back in one device->host copy at the end, the
+    a CUDA device, the same block eagerly on the CPU, from the layout's
+    cached set (``_layout_set``: a second run of the shape captures
+    nothing). This is the port's counterpart of the JAX package's one
+    compiled ``lax.scan`` over the run. Each block's round metrics are
+    copied into one device tensor; the run never waits for the device
+    until the result comes back in one device->host copy at the end, the
     metrics carry's accumulators with it when ``collect_metrics`` is set.
     """
     spec0 = specs[0]
     n_b, m, steps = len(specs), spec0.m, spec0.steps
     collect = spec0.collect_metrics
-    fail = _fail_arrays(specs, device)
-    plan = _plan(spec0, m, device)
-    progs = Programs(_carry(_init_state(spec0, m, device, n_b),
-                            init_metrics_carry(m, device, n_b)
-                            if collect else None),
-                     device, keep=(fail, plan))
+    progs = _fresh_set(specs, _LayoutKey(spec0), m, device)
+    fail, plan = progs.keep
     metrics = torch.zeros((n_b, steps, len(StepMetrics._fields)),
                           dtype=_I32, device=device)
 
@@ -872,7 +914,6 @@ def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
         (ms,) = progs.run(("dense", c, collect), block(c), t)
         metrics[:, t:t + c].copy_(ms)
     final, mc = _split(progs.state)
-    progs.release()
     quack_time, deliver_time, retry, recv_has, ms, *acc = to_host(
         [final.quack_time, final.deliver_time, final.retry, final.recv_has,
          metrics] + ([] if mc is None else list(snapshot_metrics(mc))))
@@ -893,6 +934,61 @@ def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
             obs=obs_from_final(acc, [], b) if collect else None,
         ))
     return out
+
+
+class _LayoutKey:
+    """What a program body reads of a run's specs as Python values: the
+    spec with its per-lane inputs and window config normalised away
+    (``_neutral``; ``steps`` stays, since the plan holds ``max(steps, 1)``
+    dispatch horizons), hashed once per run rather than once per lookup
+    (the schedules are O(M) tuples)."""
+
+    __slots__ = ("spec", "_hash")
+
+    def __init__(self, spec: SimSpec):
+        self.spec = _neutral(spec)
+        self._hash = hash(self.spec)
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, _LayoutKey) and self._hash == other._hash
+                and self.spec == other.spec)
+
+
+def _layout_set(layout: _LayoutKey, n_b: int, w: int, device) -> Programs:
+    """The cached program set of ``n_b`` lanes of ``layout`` at window
+    width ``w`` (``m``: the dense layout) on ``device``
+    (``graphs.program_set``). It owns the state buffers, and keeps the
+    ``FailArrays`` (each run writes its lanes' values into them in
+    place) and the width's ``_Plan``, which the programs read by
+    address. Programs within it are keyed ``(w, c, k, rotate,
+    collect)`` or ``("dense", c, collect)``."""
+    nspec = layout.spec
+    collect = nspec.collect_metrics
+
+    def build() -> Programs:
+        state = _carry(_init_state(nspec, w, device, n_b),
+                       init_metrics_carry(w, device, n_b)
+                       if collect else None)
+        keep = (_fail_arrays([nspec] * n_b, device), _plan(nspec, w, device))
+        return Programs(state, device, keep=keep)
+
+    return program_set((device, n_b, layout, w, collect), build)
+
+
+def _fresh_set(specs: List[SimSpec], layout: _LayoutKey, w: int,
+               device) -> Programs:
+    """The layout's set at width ``w`` for a run from round 0: the
+    specs' ``FailArrays`` and a fresh state copied into it."""
+    n_b, collect = len(specs), layout.spec.collect_metrics
+    progs = _layout_set(layout, n_b, w, device)
+    copy_into(progs.keep[0], _fail_arrays(specs, device))
+    progs.load(_carry(_init_state(layout.spec, w, device, n_b),
+                      init_metrics_carry(w, device, n_b)
+                      if collect else None))
+    return progs
 
 
 def _carry(state: SimState, mc: Optional[MetricsCarry]):
@@ -1078,8 +1174,9 @@ def _superchunk(spec: SimSpec, fail: FailArrays, plan: _Plan, state,
 
 
 # The windowed engine's counters, the JAX package's contract: a *trace*
-# is one capture of a chunk or superchunk program (its first use in a
-# run, on the CPU); a *dispatch* one graph replay on CUDA, or one call of
+# is one capture of a chunk or superchunk program (its first use in its
+# cached set, on the CPU), so a second run of a shape traces nothing; a
+# *dispatch* one graph replay on CUDA, or one call of
 # the program on the CPU; a *host sync* one wait for a drain, a final
 # flush or a dense migration. A run of C chunks at superchunk K that never
 # grows its window issues at most ceil(C / K) + 2 dispatches, and host
@@ -1146,10 +1243,11 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
     round 0.
 
     One-off host transform: one device->host copy of the state (and of
-    the metrics carry ``mc``, when one is given, in the same copy),
-    numpy, and back to the state's device. Returns ``(state, mc)``, the
-    carry migrated by ``migrate_dense_metrics`` from the loop's per-lane
-    dispatch mirror ``send_step`` (B, M) (None without a carry).
+    the metrics carry ``mc``, when one is given, in the same copy) and
+    numpy. Returns ``(state, mc)``: the dense state as numpy (the caller
+    copies it into the dense layout's buffers) and the carry migrated by
+    ``migrate_dense_metrics`` from the loop's per-lane dispatch mirror
+    ``send_step`` (B, M), on the state's device (None without a carry).
     """
     n_b = len(bases)
     n_s, n_r, m = spec.n_s, spec.n_r, spec.m
@@ -1181,12 +1279,12 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
             dense["known"][b][..., :lo] = True
             dense["bcast_done"][b][..., :lo] = True
             dense["orig_sent"][b][:lo] = True
-    return device_state(SimState(
+    return SimState(
         **dense,
         last_cum=state.last_cum, hq_reports=state.hq_reports,
         ack_floor=state.ack_floor,
         base=np.zeros(n_b, dtype=np.int32),
-        retired_delivered=np.zeros(n_b, dtype=np.int32)), device), mc
+        retired_delivered=np.zeros(n_b, dtype=np.int32)), mc
 
 
 # -------------------------------------------------- host-side helpers
@@ -1236,71 +1334,97 @@ def _concat_metrics(n_b: int, metric_parts) -> StepMetrics:
 
 
 # ------------------------------------------------------- windowed loop
-def _run_windowed_batch(specs: List[SimSpec], device,
-                        commit_floors=None) -> List[SimResult]:
+def _run_windowed_batch(specs: List[SimSpec], device, commit_floors=None,
+                        *, fail_schedule=None, recorder=None,
+                        resume: Optional[ChunkCheckpoint] = None,
+                        ) -> List[SimResult]:
     """The pipelined windowed loop, in the ambient tracer's ``run`` span
     (see ``_run_windowed_batch_impl``)."""
     _tr = obs_begin()
     try:
-        return _run_windowed_batch_impl(specs, device, commit_floors)
+        return _run_windowed_batch_impl(
+            specs, device, commit_floors, fail_schedule=fail_schedule,
+            recorder=recorder, resume=resume)
     finally:
         obs_end(_tr, "run", cat="engine", lanes=len(specs),
                 steps=specs[0].steps if specs else 0)
 
 
 def _run_windowed_batch_impl(specs: List[SimSpec], device,
-                             commit_floors=None) -> List[SimResult]:
+                             commit_floors=None, *, fail_schedule=None,
+                             recorder=None,
+                             resume: Optional[ChunkCheckpoint] = None,
+                             ) -> List[SimResult]:
     """The pipelined windowed loop over lanes that share a shape (one per
     spec): the JAX package's ``_run_windowed_batch_impl``.
 
     Up to K = ``superchunk`` full rotating chunks fuse into one program
     (``_superchunk``: ``chunk_steps`` rounds, each lane's GC frontier and
     ring rotation, K times, with a K-deep ``ChunkQueue`` and K-deep round
-    metrics). On a CUDA device a program is captured once per (width,
-    rounds a chunk, chunks, rotation, metrics) and replayed
-    (``graphs.Programs``); on the CPU the same function runs eagerly. A
-    span is ``k = min(K, (steps - t - 1) // chunk_steps)`` chunks; the
-    final chunk runs alone and does not rotate. After a dispatch the host
-    starts its drain (``snapshot.PinnedDrain``: queue, metrics, guard
-    flags and, with ``collect_metrics``, the K-deep ``MetricsBlock``
-    stack into pinned buffers), then folds the *previous* dispatch's
-    drain while this one computes: at most one dispatch stays undrained.
-    The drain folds the K inner chunks in order into the (B, ..., M)
-    output mirrors and rewinds ``t`` to the first chunk whose in-graph
-    overflow guard failed; the blocks of chunks it discarded are dropped
-    with them.
+    metrics). Programs come from the layout's cached set
+    (``_layout_set``), which outlives the run: on a CUDA device a program
+    is captured at its first use in the set, per (width, rounds a chunk,
+    chunks, rotation, metrics), and replayed by this and every later run
+    of the layout; on the CPU the same function runs eagerly. The run
+    copies its initial state and its lanes' ``FailArrays`` into the
+    set's buffers in place. A span is ``k = min(K, (steps - t - 1) //
+    chunk_steps)`` chunks; the final chunk runs alone and does not
+    rotate. After a dispatch the host starts its drain
+    (``snapshot.PinnedDrain``: queue, metrics, guard flags and, with
+    ``collect_metrics``, the K-deep ``MetricsBlock`` stack into pinned
+    buffers), then folds the *previous* dispatch's drain while this one
+    computes: at most one dispatch stays undrained. The drain folds the
+    K inner chunks in order into the (B, ..., M) output mirrors and
+    rewinds ``t`` to the first chunk whose in-graph overflow guard
+    failed; the blocks of chunks it discarded are dropped with them.
 
     Before each span the host checks, per lane against its own base,
     that the window holds every message dispatched by the first chunk's
     last round; on overflow the window grows 2x for all lanes, or the
     state migrates to the dense layout (``_migrate_dense_batch``), after
     a full drain, with each decision recorded as a
-    ``WindowGrowthEvent``; the old width's programs are dropped first.
-    The next dispatch is launched ahead of the drain only when a
+    ``WindowGrowthEvent``: the state moves into the new layout's set
+    (the old width's set stays cached), and the ``FailArrays`` in force
+    with it. The next dispatch is launched ahead of the drain only when a
     conservative bound (no frontier advance over the whole span, from
     the host's possibly pre-drain bases) proves the guard cannot fire.
     So every K gives the K = 1 loop's outputs, metrics, frontier
     trajectories and growth events bit for bit.
 
-    ``commit_floors``, when given, is called as ``commit_floors(t,
-    bases)`` before the chunk starting at round ``t``, after a full drain
-    (``bases``: each lane's retired prefix), inside a ``plan_floors``
-    span, and returns each lane's commit floor for that chunk: a lane
-    dispatches no message at or past its floor (the topology engine
-    routes an upstream link's retired prefix into a chained link's
-    floor). The captured programs read the floors from
-    ``fail.commit_floor``, so a new floor is written into that tensor in
-    place, on the stream that replays; ``fail`` lives as long as the run,
-    across growth and migration, and carries the floors with it. A
-    callback makes every span one chunk. Without one every floor is M (a
-    standalone link). A lane's overflow need is capped by its floor, and
-    ``send_step`` records when each message was dispatched: at its
-    schedule round, or at the round its floor opened past it if that is
-    later. With ``debug_checks`` each drained
-    chunk checks that the host's base mirror tracks the device rotation
-    and, for lanes whose adversary stakes keep
-    ``retire_safety_stakes_ok``, that every retired slot is held by at
-    least one receiver replica (GC safety).
+    Each chunk boundary, in order:
+
+    (a) ``fail_schedule``, when given, is called as ``fail_schedule(t)``;
+        a list of specs (one per lane, differing from the run's only in
+        failure masks, stakes or quorum thresholds; ``ValueError``
+        otherwise) swaps the inputs in force from round ``t`` on: their
+        ``FailArrays`` are copied into the tensors the programs read, in
+        place, the commit floors kept. ``None`` keeps them.
+    (b) ``recorder`` (``wants(t) -> bool``, ``capture(ChunkCheckpoint)``)
+        captures a checkpoint after a full drain, in a ``checkpoint``
+        span (``cat="snapshot"``, its host bytes in ``nbytes``).
+    (c) ``commit_floors``, when given, is called as ``commit_floors(t,
+        bases)`` after a full drain (``bases``: each lane's retired
+        prefix), inside a ``plan_floors`` span, and returns each lane's
+        commit floor for that chunk: a lane dispatches no message at or
+        past its floor (the topology engine routes an upstream link's
+        retired prefix into a chained link's floor). A new floor is
+        written into ``fail.commit_floor`` in place, on the stream that
+        replays. Without one every floor is M (a standalone link). A
+        lane's overflow need is capped by its floor, and ``send_step``
+        records when each message was dispatched: at its schedule round,
+        or at the round its floor opened past it if that is later.
+    (d) the overflow check above, and (e) the dispatch.
+
+    ``resume`` restarts the loop from a ``ChunkCheckpoint``: its state,
+    inputs, mirrors, floors and history are copied into the run (the
+    metrics carry restarts, seeded with ``resume_metrics_carry``), and
+    the run continues from ``resume.t``. Recorded, replayed and
+    scheduled runs dispatch one chunk at a time (K = 1 programs), so a
+    replay finds every program its recording captured; a floor callback
+    does the same. With ``debug_checks`` each drained chunk checks that
+    the host's base mirror tracks the device rotation and, for lanes
+    whose adversary stakes keep ``retire_safety_stakes_ok``, that every
+    retired slot is held by at least one receiver replica (GC safety).
     """
     spec0 = specs[0]
     n_b = len(specs)
@@ -1308,37 +1432,69 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
     steps = spec0.steps
     c_full = max(spec0.chunk_steps, 1)
     K = max(spec0.superchunk, 1)
-    w = spec0.window_slots
     collect = spec0.collect_metrics
-    fail = _fail_arrays(specs, device)
-    plan = _plan(spec0, w, device)
-    progs = Programs(_carry(_init_state(spec0, w, device, n_b),
-                            init_metrics_carry(w, device, n_b)
-                            if collect else None),
-                     device, keep=(fail, plan))
+    layout = _LayoutKey(spec0)
     drains = PinnedDrain(device)
-
-    out_quack = np.full((n_b, n_s, m), -1, dtype=np.int32)
-    out_deliver = np.full((n_b, m), -1, dtype=np.int32)
-    out_retry = np.zeros((n_b, n_s, m), dtype=np.int32)
-    out_recv = np.zeros((n_b, n_r, m), dtype=bool)
-    outs = (out_quack, out_deliver, out_retry, out_recv)
-    bases = np.zeros(n_b, dtype=np.int64)
-    bases_hist = [bases.copy()]
     dispatched_by = _max_msg_by_round(spec0)
-    metric_parts: List[StepMetrics] = []
+    ostep = np.asarray(spec0.orig_step, dtype=np.int64)
+
+    if resume is None:
+        w = spec0.window_slots
+        progs = _fresh_set(specs, layout, w, device)
+        out_quack = np.full((n_b, n_s, m), -1, dtype=np.int32)
+        out_deliver = np.full((n_b, m), -1, dtype=np.int32)
+        out_retry = np.zeros((n_b, n_s, m), dtype=np.int32)
+        out_recv = np.zeros((n_b, n_r, m), dtype=bool)
+        bases = np.zeros(n_b, dtype=np.int64)
+        bases_hist = [bases.copy()]
+        floors = np.full(n_b, m, dtype=np.int64)
+        t = 0
+        metric_parts: List[StepMetrics] = []
+        growth_events: List[WindowGrowthEvent] = []
+        # each lane's dispatch round of every message (-1: not yet),
+        # filled as its floor opens
+        send_step = np.full((n_b, m), -1, dtype=np.int64)
+        open_floor = np.zeros(n_b, dtype=np.int64)
+    else:
+        if len(resume.bases) != n_b:
+            raise ValueError(
+                f"resume checkpoint has {len(resume.bases)} lanes, specs "
+                f"describe {n_b}")
+        w = int(resume.window_slots)
+        progs = _layout_set(layout, n_b, w, device)
+        copy_into(progs.keep[0], resume.fails)
+        out_quack = np.array(resume.out_quack, dtype=np.int32)
+        out_deliver = np.array(resume.out_deliver, dtype=np.int32)
+        out_retry = np.array(resume.out_retry, dtype=np.int32)
+        out_recv = np.array(resume.out_recv, dtype=bool)
+        bases = np.array(resume.bases, dtype=np.int64)
+        bases_hist = [np.array(r, dtype=np.int64)
+                      for r in resume.bases_hist]
+        floors = np.array(resume.floors, dtype=np.int64)
+        t = int(resume.t)
+        metric_parts = [p for p in resume.metric_parts
+                        if np.asarray(p.acks).shape[-1]]
+        growth_events = list(resume.growth_events)
+        if resume.send_step is not None:
+            send_step = np.array(resume.send_step, dtype=np.int64)
+        else:
+            # a trace without the mirror: every message below the
+            # checkpoint's floor dispatched at its schedule round (exact
+            # for standalone links, whose floor opened at round 0)
+            send_step = np.where(
+                np.arange(m, dtype=np.int64)[None, :] < floors[:, None],
+                ostep[None, :], -1)
+        open_floor = floors.copy()
+        progs.load(_carry(resume.state,
+                          resume_metrics_carry(w, bases, send_step, m,
+                                               device)
+                          if collect else None))
+    fail, plan = progs.keep
+    outs = (out_quack, out_deliver, out_retry, out_recv)
     obs_parts: List[MetricsBlock] = []   # drained per-chunk snapshots
-    growth_events: List[WindowGrowthEvent] = []
     debug = spec0.debug_checks
     retire_check = np.array([retire_safety_stakes_ok(s) for s in specs])
     pending: List[dict] = []      # dispatched, not yet drained (<= 1)
-    t = 0
-    ostep = np.asarray(spec0.orig_step, dtype=np.int64)
-    floors = np.full(n_b, m, dtype=np.int64)
-    # each lane's dispatch round of every message (-1: not yet), filled
-    # as its floor opens
-    send_step = np.full((n_b, m), -1, dtype=np.int64)
-    open_floor = np.zeros(n_b, dtype=np.int64)
 
     def drain_one(ent: dict) -> None:
         nonlocal bases, t
@@ -1354,7 +1510,7 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         executed = int(oks.sum())
         if executed < k:
             t = ent["t0"] + executed * c
-            progs.discount(ent["key"], k - executed, k)
+            ent["progs"].discount(ent["key"], k - executed, k)
         for i in range(executed):
             metric_parts.append(StepMetrics(*(
                 ms[i, :, :, j].copy() for j in range(ms.shape[3]))))
@@ -1387,7 +1543,7 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         while pending:
             drain_one(pending.pop(0))
 
-    def program(c: int, k: int, rotate: bool, w: int, plan: _Plan):
+    def program(c: int, k: int, rotate: bool, w: int, fail, plan):
         def body(carry, t0):
             carry, ms, queue, oks, *blk = _superchunk(
                 spec0, fail, plan, carry, t0, w, c, k, rotate)
@@ -1396,7 +1552,45 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
 
     while t < steps:
         c = min(c_full, steps - t)
-        # the floors follow this boundary's retired prefixes, so the
+        # (a) a schedule swap writes the new inputs into the tensors the
+        # programs read; a replay still in flight read the old ones first
+        new_specs = None if fail_schedule is None else fail_schedule(t)
+        if new_specs is not None:
+            new_specs = list(new_specs)
+            if (len(new_specs) != n_b
+                    or any(_LayoutKey(s) != layout for s in new_specs)):
+                raise ValueError(
+                    "fail_schedule must return one spec per lane, "
+                    "differing from the originals only in failure "
+                    "masks, stakes or quorum thresholds (inputs the "
+                    "programs read; anything else is another program)")
+            copy_into(fail, _fail_arrays(new_specs, device)._replace(
+                commit_floor=fail.commit_floor))
+            retire_check = np.array([retire_safety_stakes_ok(s)
+                                     for s in new_specs])
+        # (b) a checkpoint is the boundary's exact state: the pipeline
+        # drains first
+        if recorder is not None and recorder.wants(t):
+            drain_all()
+            _HOST_SYNCS[0] += 1
+            _tc = obs_begin()
+            # the state and the inputs in force, in one device->host copy
+            got = to_host(list(_split(progs.state)[0]) + list(fail))
+            n_state = len(SimState._fields)
+            ckpt = ChunkCheckpoint(
+                t=t, window_slots=w, bases=bases.copy(),
+                state=SimState(*got[:n_state]),
+                fails=FailArrays(*got[n_state:]), floors=floors.copy(),
+                out_quack=out_quack.copy(), out_deliver=out_deliver.copy(),
+                out_retry=out_retry.copy(), out_recv=out_recv.copy(),
+                metric_parts=tuple(metric_parts),
+                bases_hist=np.stack(bases_hist),
+                growth_events=tuple(growth_events),
+                send_step=send_step.copy())
+            recorder.capture(ckpt)
+            obs_end(_tc, "checkpoint", cat="snapshot", t=t,
+                    nbytes=_checkpoint_nbytes(ckpt))
+        # (c) the floors follow this boundary's retired prefixes, so the
         # pipeline drains before asking; no replay reads the floors while
         # they are written
         if commit_floors is not None:
@@ -1415,7 +1609,7 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
             ks = np.arange(open_floor[b], floors[b])
             send_step[b, ks] = np.maximum(ostep[ks], t)
             open_floor[b] = floors[b]
-        # per-lane overflow check: a lane's window must hold every
+        # (d) per-lane overflow check: a lane's window must hold every
         # message it may dispatch by the chunk's last round (nothing at
         # or past its floor), measured against its own base; only a
         # potential overflow waits for the drain
@@ -1434,7 +1628,6 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
                 new_w=m if new_w is None else new_w,
                 dense_migration=new_w is None))
             state, mc = _split(progs.state)
-            progs.release()
             _tg = obs_begin()
             if new_w is None:
                 state, mc = _migrate_dense_batch(spec0, state, bases, *outs,
@@ -1442,25 +1635,33 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
                 _HOST_SYNCS[0] += 1
                 bases[:] = 0
                 w = m
-                obs_end(_tg, "dense_migration", cat="window", t=t,
-                        new_w=m)
             else:
                 state = pad_window(state, new_w)
                 if mc is not None:
                     mc = pad_metrics(mc, new_w)
                 w = new_w
-                obs_end(_tg, "window_growth", cat="window", t=t,
-                        new_w=new_w)
-            plan = _plan(spec0, w, device)
-            progs = Programs(_carry(state, mc), device, keep=(fail, plan))
+            # the new layout's set takes the state and the inputs in
+            # force; the old width's set stays cached
+            old_fail = fail
+            progs = _layout_set(layout, n_b, w, device)
+            fail, plan = progs.keep
+            copy_into(fail, old_fail)
+            progs.load(_carry(state, mc))
+            obs_end(_tg, "dense_migration" if new_w is None
+                    else "window_growth", cat="window", t=t, new_w=w)
         # the schedule gather reads [base, base + w) of a schedule padded
         # by w: it stays in range while every base is at most M
         if (bases > m).any():
             raise RuntimeError(f"window bases {bases} past the stream end "
                                f"{m}")
+        # (e) a span fuses up to K chunks, only where nothing needs the
+        # host between them: recorded, resumed and scheduled runs stay on
+        # K = 1 programs, which a recording captures for every replay
+        fusible = (resume is None and fail_schedule is None
+                   and recorder is None and commit_floors is None)
         last = t + c >= steps
         k = 1
-        if not last and c == c_full and commit_floors is None:
+        if not last and c == c_full and fusible:
             k = min(K, (steps - t - 1) // c_full)
         # launch ahead only when the guard provably cannot fire: no
         # frontier advance over the whole span, from the host's bases
@@ -1472,10 +1673,10 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         captured = key not in progs
         if captured:
             _CHUNK_TRACES[0] += 1
-        result = progs.run(key, program(c, k, not last, w, plan), t)
+        result = progs.run(key, program(c, k, not last, w, fail, plan), t)
         _CHUNK_DISPATCHES[0] += 1
         pending.append(dict(t0=t, k=k, c=c, rotate=not last, key=key,
-                            handle=drains.start(result)))
+                            progs=progs, handle=drains.start(result)))
         obs_end(_td, "compile" if captured else "dispatch", cat="dispatch",
                 t=t, k=k)
         t += k * c
@@ -1489,7 +1690,6 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
     # in one copy
     _tf = obs_begin()
     final, mc = _split(progs.state)
-    progs.release()
     live = [final.quack_time, final.deliver_time, final.retry,
             final.recv_has]
     got = to_host(live + ([] if mc is None else list(snapshot_metrics(mc))))
@@ -1520,6 +1720,15 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         obs=(obs_from_final(final_acc, obs_parts, b) if collect
              else None),
     ) for b, spec in enumerate(specs)]
+
+
+def _checkpoint_nbytes(ckpt: ChunkCheckpoint) -> int:
+    """Host bytes a checkpoint holds of its own (its metric blocks are
+    shared with the loop)."""
+    leaves = ([ckpt.bases, ckpt.floors, ckpt.out_quack, ckpt.out_deliver,
+               ckpt.out_retry, ckpt.out_recv, ckpt.bases_hist,
+               ckpt.send_step] + list(ckpt.state) + list(ckpt.fails))
+    return int(sum(np.asarray(x).nbytes for x in leaves))
 
 
 # ------------------------------------------------------------------ runs

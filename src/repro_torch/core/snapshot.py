@@ -9,18 +9,20 @@ the host<->device moves of a whole state tree and the width migration.
 Everything here works structurally on ``NamedTuple`` state trees
 (``_fields`` / ``_replace``), so it depends on nothing of the simulator.
 ``PinnedDrain`` is the windowed engine's per-dispatch drain, which
-overlaps the device's next dispatch.
+overlaps the device's next dispatch. ``repro_torch.replay`` serialises
+checkpoints with ``state_to_arrays`` / ``state_from_arrays``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["WINDOW_FILLS", "window_shapes", "to_host", "host_state",
-           "device_state", "pad_window", "PinnedDrain"]
+           "device_state", "pad_window", "PinnedDrain", "state_to_arrays",
+           "state_from_arrays"]
 
 # window-indexed SimState fields -> neutral fill for a fresh slot
 WINDOW_FILLS = dict(recv_has=False, bcast_q=False, bcast_done=False,
@@ -44,33 +46,41 @@ def _check_dtypes(tensors: Sequence[torch.Tensor]) -> None:
 
 
 def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Bring int32/bool tensors to numpy in ONE device->host copy
+    """Bring int32/bool/float32 tensors to numpy in ONE device->host copy
     (flattened into one int32 buffer and split back, dtypes kept).
 
-    Raises ``TypeError`` on any other dtype, which the int32 packing
-    would not keep exactly.
+    float32 moves as its bits (``view(torch.int32)``), so it comes back
+    bit for bit; any other dtype raises ``TypeError``.
     """
-    _check_dtypes(tensors)
-    flat = torch.cat([t.reshape(-1).to(torch.int32)
-                      for t in tensors]).cpu().numpy()
+    for t in tensors:
+        if t.dtype not in (torch.int32, torch.bool, torch.float32):
+            raise TypeError(f"to_host takes int32/bool/float32 tensors, "
+                            f"got {t.dtype}")
+    flat = torch.cat([
+        (t.view(torch.int32) if t.dtype == torch.float32 else t)
+        .reshape(-1).to(torch.int32) for t in tensors]).cpu().numpy()
     out, at = [], 0
     for t in tensors:
         n = t.numel()
         a = flat[at:at + n].reshape(tuple(t.shape))
-        out.append(a.astype(bool) if t.dtype == torch.bool else a)
+        if t.dtype == torch.bool:
+            a = a.astype(bool)
+        elif t.dtype == torch.float32:
+            a = a.view(np.float32)
+        out.append(a)
         at += n
     return out
 
 
 def host_state(state):
-    """A state tree of int32/bool tensors as the same tree of numpy
-    arrays, in one device->host copy."""
+    """A state tree of int32/bool/float32 tensors as the same tree of
+    numpy arrays, in one device->host copy, every bit kept."""
     return type(state)(*to_host(list(state)))
 
 
 def device_state(state, device):
     """Push a host-side state tree onto ``device`` (exact: every leaf is
-    int32/bool, so the round trip keeps every bit)."""
+    int32/bool/float32, so the round trip keeps every bit)."""
     return type(state)(*(torch.as_tensor(np.asarray(x), device=device)
                          for x in state))
 
@@ -96,6 +106,32 @@ def pad_window(state, new_w: int):
     return state._replace(
         **{name: pad(getattr(state, name), fill)
            for name, fill in WINDOW_FILLS.items()})
+
+
+def state_to_arrays(state, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Flatten a state ``NamedTuple`` into named numpy arrays (npz-ready)."""
+    return {f"{prefix}{name}": np.asarray(getattr(state, name))
+            for name in state._fields}
+
+
+def state_from_arrays(cls, arrays, prefix: str = "", defaults=None):
+    """Rebuild a state ``NamedTuple`` of type ``cls`` from named arrays.
+
+    ``defaults`` maps field name -> array for fields absent from
+    ``arrays``: the shim for traces written before a field existed (e.g.
+    ``FailArrays`` without the adversary masks or the stakes). A field
+    missing from both raises ``KeyError``: zero-filling protocol state
+    would corrupt a resume.
+    """
+    defaults = defaults or {}
+
+    def get(name):
+        key = f"{prefix}{name}"
+        if key in arrays:
+            return np.asarray(arrays[key])
+        return np.asarray(defaults[name])
+
+    return cls(**{name: get(name) for name in cls._fields})
 
 
 class PinnedDrain:

@@ -15,7 +15,7 @@ Canonical span names emitted by the engine
   ``run``             whole ``_run_windowed_batch`` invocation
   ``compile``         a dispatch that captured at least one CUDA graph
                       (on the CPU: that ran a program for the first time
-                      in the run, ``chunk_trace_count`` moving)
+                      in its cached set, ``chunk_trace_count`` moving)
   ``dispatch``        replay of an already-captured chunk/superchunk
                       program, and the start of its drain
   ``drain_wait``      blocking wait for a dispatch's drained queue;
@@ -28,8 +28,9 @@ Canonical span names emitted by the engine
   ``plan_floors``     a commit-floor callback at a chunk boundary
                       (``cat="plan"``; topology runs)
   ``run_topology``    a whole ``repro_torch.topology.run_topology``
-
-(``checkpoint`` comes with the replay layer, which emits it.)
+  ``checkpoint``      a recorder checkpoint (``cat="snapshot"``;
+                      ``args.nbytes``: the host bytes it holds)
+  ``replay_resume``   a whole ``repro_torch.replay`` resume
 
 Export: :meth:`SpanTracer.export_chrome_trace` writes Chrome
 trace-event JSON loadable in Perfetto / ``chrome://tracing``;

@@ -124,7 +124,8 @@ def plan_floors(plan: Dict[int, int], n_lanes: int, m: int,
     """Commit floors for one chunk from the lanes' retired prefixes.
 
     ``plan`` maps lane -> upstream lane; unchained lanes are fully
-    committed (floor = m). Shared by the engine and the numpy mirror, so
+    committed (floor = m). Shared by the engine, the numpy mirror and the
+    replay and what-if runs (which tile the plan across fork blocks), so
     the chained-delivery rule has exactly one implementation.
     """
     floors = np.full(n_lanes, m, dtype=np.int64)
@@ -185,25 +186,26 @@ def run_topology(topo: Topology, *, device=None, recorder=None,
     """Execute every link of the graph as the lanes of one windowed run
     on ``device`` (default: CUDA; raises if it is absent).
 
-    ``recorder``, ``resume`` and ``fail_schedule`` (chunk-boundary
-    checkpoints, resume, mid-stream failure swaps) come with the port of
-    the replay subsystem; until then passing one raises
-    ``NotImplementedError``.
+    ``recorder`` / ``resume`` / ``fail_schedule`` pass straight through
+    to the windowed loop: chunk-boundary checkpoints, resume from one,
+    and mid-stream swaps of the links' inputs, for the replay subsystem
+    (``repro_torch.replay``). On resume the commit-floor history of the
+    chunks already run is rebuilt from the checkpoint's base trajectory
+    by the same ``plan_floors`` rule, so a replayed
+    ``LinkResult.commit_floors`` is bit-identical to the original run's.
     """
-    for name, arg in (("recorder", recorder), ("resume", resume),
-                      ("fail_schedule", fail_schedule)):
-        if arg is not None:
-            raise NotImplementedError(
-                f"run_topology: {name} is not ported yet; it comes with "
-                f"the replay subsystem (ROADMAP queue 1 item 6)")
     dev = _resolve_device(device)
     specs = link_specs(topo)
     planner = FloorPlanner(_floor_plan(topo), len(specs), specs[0].m)
+    if resume is not None:
+        planner.seed_history(np.asarray(resume.bases_hist)[:-1])
     # the loop wraps each floor callback in a "plan_floors" span; this
     # outer span makes whole-graph sessions addressable in the timeline
     with obs_span("run_topology", cat="engine",
                   links=[l.name for l in topo.links]):
-        results = _run_windowed_batch(specs, dev, commit_floors=planner)
+        results = _run_windowed_batch(specs, dev, commit_floors=planner,
+                                      recorder=recorder, resume=resume,
+                                      fail_schedule=fail_schedule)
     hist = planner.stacked()                      # (n_chunks, L)
     links = {
         l.name: LinkResult(link=l, result=r, commit_floors=hist[:, i])

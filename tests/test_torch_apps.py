@@ -128,8 +128,32 @@ def test_disaster_recovery_carries_payloads():
 
 @pytest.mark.parametrize("use_reference", ENGINES, ids=ENGINE_IDS)
 def test_inject_via_replay_raises(use_reference):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _port_dr("crash_late", use_reference, inject_via_replay=True)
+    """``inject_via_replay`` is ported (``repro_torch.replay``): it no
+    longer raises ``NotImplementedError``. The injected report == the
+    static one and == the JAX package's injected report, field by field;
+    what still raises is what raises in the JAX package (one backup)."""
+    _, crash_at, fails = next(f for f in DR_FIXTURES
+                              if f[0] == "crash_late")
+    injected = _port_dr("crash_late", use_reference, inject_via_replay=True)
+    static = _port_dr("crash_late", use_reference)
+    jinjected = japps.run_disaster_recovery(
+        JBFT1, JBFT1, SIM, backup_failures=fails, inject_via_replay=True,
+        use_reference=use_reference, **_dr_args(crash_at, fails))
+    for other in (static, jinjected):
+        assert injected.elected == other.elected
+        assert injected.phase1_prefixes == other.phase1_prefixes
+        assert injected.final_prefixes == other.final_prefixes
+        assert injected.converged == other.converged
+        assert np.array_equal(injected.recovered_log, other.recovered_log)
+    assert injected.injected_at == jinjected.injected_at
+    assert (injected.phase1_trace is None) == use_reference
+    _assert_links_equal(injected.phase1, jinjected.phase1)
+    with pytest.raises(ValueError, match="2 backups"):
+        tapps.run_disaster_recovery(
+            BFT1, BFT1, _port(tcore.SimConfig, SIM), backups=("only",),
+            crash_at=crash_at, inject_via_replay=True,
+            use_reference=use_reference,
+            device=None if use_reference else "cpu")
 
 
 # --------------------------------------------------- reconciliation

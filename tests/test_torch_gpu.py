@@ -25,7 +25,10 @@ metrics-off run's, and the engine's counters do not move. Topologies
 (``repro_torch.topology``) and the §6 applications (``repro_torch.apps``)
 on the card equal their CPU runs and the numpy mirror, and a commit
 floor written between two replays of one captured chunk program changes
-what that program dispatches.
+what that program dispatches. Programs outlive runs: a second run of a
+shape captures nothing; a ``fail_schedule`` swap written between two
+replays of one captured program changes what it computes; recorded runs
+replay, resume and fork on the card as on the CPU (``repro_torch.replay``).
 """
 
 import gc
@@ -502,11 +505,14 @@ def test_steady_loop_issues_no_sync(monkeypatch):
 
 
 def test_growth_frees_the_old_widths_graphs(monkeypatch):
-    """When the window grows (and migrates to dense), the old width's
-    graphs are dropped before the new width's are captured, and a run
-    leaves no graph alive."""
+    """When the window grows (and migrates to dense), the run moves into
+    the new width's program set and the old widths' graphs stay cached,
+    as the JAX package keeps every width compiled: a second run of the
+    spec captures nothing and equals the first. ``clear_programs`` then
+    frees every graph."""
     _need_cuda()
-    captured, seen = [], []
+    graphs.clear_programs()
+    captured = []
     capture = graphs.Programs._capture
 
     def live():
@@ -514,7 +520,6 @@ def test_growth_frees_the_old_widths_graphs(monkeypatch):
         return [key for key, ref in captured if ref() is not None]
 
     def spy(self, key, body):
-        seen.append((key, live()))
         prog = capture(self, key, body)
         captured.append((key, weakref.ref(prog)))
         return prog
@@ -524,10 +529,14 @@ def test_growth_frees_the_old_widths_graphs(monkeypatch):
         n_msgs=64, steps=200, window=1, phi=6, window_slots=16,
         chunk_steps=8), FailureScenario(**_STALL, crash_r=(-1, 8, -1, -1)))
     res = tsim.run_simulation(spec)
-    widths = {key[0] for key, _ in seen}
+    widths = {key[0] for key, _ in captured}
     assert len(widths) >= 2 and res.window_growth_events[-1].dense_migration
-    for key, alive in seen:
-        assert all(other[0] == key[0] for other in alive), (key, alive)
+    n = len(captured)
+    assert len(live()) == n
+    again = tsim.run_simulation(spec)
+    assert len(captured) == n
+    _same_run(again, res)
+    graphs.clear_programs()
     assert live() == []
 
 
@@ -901,6 +910,7 @@ def test_floor_written_in_place_reaches_the_captured_program():
 
     cpu = tsim._run_windowed_batch([spec], torch.device("cpu"),
                                    commit_floors=floors)[0]
+    graphs.clear_programs()
     captures = graphs.capture_count()
     replays = graphs.replay_count()
     gpu = tsim._run_windowed_batch([spec], torch.device("cuda"),
@@ -987,3 +997,158 @@ def test_disaster_recovery_cuda_matches_cpu_and_mirror():
     _same_topology(gpu.phase1, cpu.phase1)
     _same_topology(gpu.phase2, cpu.phase2)
     _same_topology(gpu.phase1, ref.phase1, outputs_only=True)
+
+
+# ------------------------------------------ programs kept, and replay
+def _replay_spec(**kw):
+    sim = dict(n_msgs=256, steps=120, window=1, window_slots=64,
+               chunk_steps=8)
+    return tsim.build_spec(_BFT1, _BFT1, SimConfig(**dict(sim, **kw)))
+
+
+@pytest.mark.parametrize("windowed", [True, False],
+                         ids=["windowed", "dense"])
+def test_warm_runs_capture_nothing_on_cuda(windowed):
+    """Three identical runs capture +N, +0, +0 graphs and replay the
+    same number each time; every run == the CPU run."""
+    _need_cuda()
+    kw = dict(superchunk=4) if windowed else dict(window_slots=None)
+    spec = _replay_spec(**kw)
+    cpu = tsim.run_simulation(spec, device="cpu")
+    graphs.clear_programs()
+    moved = []
+    for _ in range(3):
+        before = (graphs.capture_count(), graphs.replay_count())
+        res = tsim.run_simulation(spec)
+        moved.append(tuple(a - b for a, b in zip(
+            (graphs.capture_count(), graphs.replay_count()), before)))
+        for f in ("quack_time", "deliver_time", "retry", "recv_has"):
+            assert np.array_equal(getattr(res, f), getattr(cpu, f)), f
+    (c0, r0), (c1, r1), (c2, r2) = moved
+    assert c0 > 0 and c1 == c2 == 0 and r0 == r1 == r2
+
+
+def test_capture_after_another_run_of_the_layout():
+    """K is not part of a layout: a K = 1 run leaves the set's round
+    tensor at its last chunk, and the K = 8 run after it captures its
+    spans there; each capture's warm-up must run at its own round (a
+    span from the last round would index past the run's dispatch
+    horizons). Both == the CPU run."""
+    _need_cuda()
+    graphs.clear_programs()
+    cpu = tsim.run_simulation(_replay_spec(), device="cpu")
+    for k in (1, 8):
+        res = tsim.run_simulation(_replay_spec(superchunk=k))
+        _same_run(res, cpu)
+
+
+def test_fail_schedule_swap_reaches_the_captured_program():
+    """The captured chunk programs read the per-lane inputs from tensors
+    a swap rewrites in place: every sender crashing at round 24, swapped
+    in before the fourth chunk, makes the *same* captured rotating-chunk
+    program, replayed, stop sending from round 24 on (inputs written as
+    new tensors would leave the graph sending)."""
+    _need_cuda()
+    spec = _replay_spec(window_slots=256)          # W = M: never grows
+    crashed = tsim.spec_with_failures(spec, FailureScenario(
+        crash_s=(24,) * 4))
+
+    def schedule(t):
+        return [crashed] if t == 24 else None
+
+    cpu = tsim._run_windowed_batch([spec], torch.device("cpu"),
+                                   fail_schedule=schedule)[0]
+    graphs.clear_programs()
+    captures = graphs.capture_count()
+    gpu = tsim._run_windowed_batch([spec], torch.device("cuda"),
+                                   fail_schedule=schedule)[0]
+    assert graphs.capture_count() - captures == 2
+    _same_run(gpu, cpu)
+    cross = gpu.metrics.cross_msgs
+    assert cross[16:24].sum() > 0 and cross[24:].sum() == 0
+    plain = tsim.run_simulation(spec)
+    assert plain.metrics.cross_msgs[24:].sum() > 0
+    scratch = tsim.run_simulation(crashed)
+    for f in ("quack_time", "deliver_time", "retry", "recv_has"):
+        assert np.array_equal(getattr(gpu, f), getattr(scratch, f)), f
+
+
+def test_replay_equals_original_on_cuda():
+    """A run recorded on the card (stakes re-weighted to non-integers,
+    which its checkpoints keep bit for bit) replays from every
+    checkpoint to the original, capturing nothing; an injected replay ==
+    the CPU's and the numpy oracle's; a fork set == its replays."""
+    _need_cuda()
+    from repro_torch.replay import (ForkSpec, Injection, fork_whatif,
+                                    record_simulation, replay,
+                                    replay_oracle)
+    spec = tsim.spec_with_quorum(_replay_spec(),
+                                 stakes_r=(1.5, 1.0, 1.0, 0.75),
+                                 quack_thresh=2.25)
+    graphs.clear_programs()
+    res, trace = record_simulation(spec)
+    cres, ctrace = record_simulation(spec, device="cpu")
+    _same_run(res, cres)
+    for c, cc in zip(trace.checkpoints, ctrace.checkpoints):
+        for f in c.state._fields + c.fails._fields:
+            x = getattr(c.state if f in c.state._fields else c.fails, f)
+            y = getattr(cc.state if f in cc.state._fields else cc.fails, f)
+            assert x.dtype == y.dtype and np.array_equal(x, y), f
+    assert trace.checkpoints[1].fails.stakes_r.dtype == np.float32
+    assert np.array_equal(trace.checkpoints[1].fails.stakes_r[0],
+                          np.asarray(spec.stakes_r, dtype=np.float32))
+    captures = graphs.capture_count()
+    for t in trace.boundaries().tolist():
+        rr = replay(trace, t)[0]
+        # == the CPU's replay in every field; == the original in what the
+        # replay contract covers (from round 0 the JAX package's resume,
+        # and so the port's, reports no send_step: ROADMAP queue 3)
+        _same_run(rr, replay(ctrace, t, device="cpu")[0])
+        for f in ("quack_time", "deliver_time", "retry", "recv_has",
+                  "gc_frontiers"):
+            assert np.array_equal(getattr(rr, f), getattr(res, f)), f
+        for f in tsim.StepMetrics._fields:
+            assert np.array_equal(getattr(rr.metrics, f),
+                                  getattr(res.metrics, f)), f
+    assert graphs.capture_count() == captures
+    inj = [Injection(16, FailureScenario(crash_s=(16, -1, -1, -1)))]
+    ri = replay(trace, 16, inj)[0]
+    _same_run(ri, replay(ctrace, 16, inj, device="cpu")[0])
+    ref = replay_oracle(trace, inj)
+    for f in ("quack_time", "deliver_time", "retry", "recv_has"):
+        assert np.array_equal(getattr(ri, f), getattr(ref, f)), f
+    forks = [ForkSpec("base"), ForkSpec("crash", inj)]
+    report = fork_whatif(trace, 16, forks)
+    for fs in forks:
+        solo = replay(trace, 16, fs.injections)[0]
+        for f in ("quack_time", "deliver_time", "retry", "recv_has"):
+            assert np.array_equal(getattr(report[fs.name].results[0], f),
+                                  getattr(solo, f)), f
+    late = [ForkSpec("base"), ForkSpec("crash", [Injection(
+        24, FailureScenario(crash_s=(24, -1, -1, -1)))])]
+    assert fork_whatif(trace, 24, late).chunk_traces == 0
+
+
+def test_disaster_recovery_injected_on_cuda():
+    """The crash injected into a recorded stream on the card == the
+    static schedule's report, and == the CPU's injected run."""
+    _need_cuda()
+    from repro_torch.apps import run_disaster_recovery
+    cfg = RSMConfig.bft(1)
+    sim = SimConfig(n_msgs=96, steps=60, window=1, phi=6, window_slots=24,
+                    chunk_steps=8)
+    kw = dict(crash_at=12, backup_failures={
+        "backup-1": FailureScenario(byz_recv_drop=(True, True, False,
+                                                   False))})
+    static = run_disaster_recovery(cfg, cfg, sim, **kw)
+    injected = run_disaster_recovery(cfg, cfg, sim, inject_via_replay=True,
+                                     **kw)
+    cpu = run_disaster_recovery(cfg, cfg, sim, inject_via_replay=True,
+                                device="cpu", **kw)
+    assert injected.injected_at == 8 and injected.phase1_trace is not None
+    for other in (static, cpu):
+        assert injected.elected == other.elected
+        assert injected.phase1_prefixes == other.phase1_prefixes
+        assert injected.final_prefixes == other.final_prefixes
+        assert np.array_equal(injected.recovered_log, other.recovered_log)
+    _same_topology(injected.phase1, cpu.phase1)

@@ -161,30 +161,36 @@ def test_run_picsou_batch_matches_jax():
 def test_dispatch_and_sync_counts_shrink():
     """The fixture of ``test_dispatch_and_sync_counts_shrink`` on the
     port's counters: K = 1 dispatches once a chunk; K = 8 at most
-    ceil(C / 8) + 2 times; host syncs at most dispatches + 2."""
+    ceil(C / 8) + 2 times; host syncs at most dispatches + 2. From a
+    cold program cache, K = 1 captures its two programs and K = 8 only
+    the 8-chunk span (its one-chunk tail span and final chunk are K =
+    1's); run again, neither captures anything (the reference's warm
+    contract) and both dispatch and sync as before."""
     simkw = dict(n_msgs=512, steps=512 // 4 + 40, window=1, phi=6,
                  window_slots=256, chunk_steps=4)
     jspec = _jspec(simkw, JFailureScenario.none(), 8)
     n_chunks = -(-jspec.steps // jspec.chunk_steps)
+    tgraphs.clear_programs()
     counts = {}
-    for k in (1, 8):
+    for k in (1, 8, 1, 8):
         before = (tsim.chunk_dispatch_count(), tsim.host_sync_count(),
                   tsim.chunk_trace_count())
-        counts[k] = _port(jspec, superchunk=k)
+        res = _port(jspec, superchunk=k)
         after = (tsim.chunk_dispatch_count(), tsim.host_sync_count(),
                  tsim.chunk_trace_count())
-        counts[k] = (counts[k],) + tuple(a - b for a, b in
-                                         zip(after, before))
+        counts.setdefault(k, []).append(
+            (res,) + tuple(a - b for a, b in zip(after, before)))
     (r1, disp1, sync1, traces1), (r8, disp8, sync8, traces8) = \
-        counts[1], counts[8]
+        counts[1][0], counts[8][0]
     _assert_windowed_equal(r1, r8)
     assert disp1 == n_chunks
     assert sync1 >= n_chunks and sync1 <= disp1 + 2
     assert disp8 <= -(-n_chunks // 8) + 2
     assert sync8 <= disp8 + 2
-    # K = 1: the rotating chunk and the final one; K = 8: the 8-chunk
-    # span, a shorter tail span and the final chunk
-    assert traces1 == 2 and traces8 == 3
+    assert traces1 == 2 and traces8 == 1
+    for k, ((_, *cold), (warm_res, *warm)) in counts.items():
+        _assert_windowed_equal(warm_res, r1)
+        assert warm[:2] == cold[:2] and warm[2] == 0, k
 
 
 @pytest.mark.parametrize("k", [1, 8])

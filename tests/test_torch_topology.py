@@ -23,6 +23,7 @@ import repro.core.refsim as jrefsim
 import repro.topology as jtopo
 import repro.topology.engine as jengine
 import repro_torch.core as tcore
+import repro_torch.core.graphs as tgraphs
 import repro_torch.core.refsim as trefsim
 import repro_torch.topology as ttopo
 import repro_torch.topology.engine as tengine
@@ -249,7 +250,8 @@ def test_commit_floor_boundaries_stay_synchronous():
 def test_one_dispatch_per_chunk_covering_every_link(monkeypatch):
     """Each chunk costs exactly one dispatch, whose program runs every
     link as a lane, one host sync (its drain) and one ``plan_floors``
-    span; two programs (the rotating chunk and the last one)."""
+    span; two programs (the rotating chunk and the last one) on a cold
+    program cache, and none when the same topology runs again."""
     lanes = []
     real = tsim._superchunk
 
@@ -260,21 +262,24 @@ def test_one_dispatch_per_chunk_covering_every_link(monkeypatch):
     monkeypatch.setattr(tsim, "_superchunk", counting)
     topo = _port_topo(jtopo.Topology.fanout(
         "p", ["b0", "b1", "b2"], BFT1, FIXTURES[0][1].sim))
-    before = (tsim.chunk_dispatch_count(), tsim.host_sync_count(),
-              tsim.chunk_trace_count())
-    tr = SpanTracer()
-    with tracing(tr):
-        ttopo.run_topology(topo, device="cpu")
-    dispatches, syncs, traces = (a - b for a, b in zip(
-        (tsim.chunk_dispatch_count(), tsim.host_sync_count(),
-         tsim.chunk_trace_count()), before))
+    tgraphs.clear_programs()
     n_chunks = -(-topo.sim.steps // topo.sim.chunk_steps)
-    assert dispatches == n_chunks == len(lanes)
-    assert set(lanes) == {len(topo.links)}
-    assert syncs == n_chunks + 1               # the drains, the flush
-    assert traces == 2
-    assert tr.count("plan_floors") == n_chunks
-    assert tr.count("run_topology") == tr.count("run") == 1
+    for cold in (True, False):
+        lanes.clear()
+        before = (tsim.chunk_dispatch_count(), tsim.host_sync_count(),
+                  tsim.chunk_trace_count())
+        tr = SpanTracer()
+        with tracing(tr):
+            ttopo.run_topology(topo, device="cpu")
+        dispatches, syncs, traces = (a - b for a, b in zip(
+            (tsim.chunk_dispatch_count(), tsim.host_sync_count(),
+             tsim.chunk_trace_count()), before))
+        assert dispatches == n_chunks == len(lanes)
+        assert set(lanes) == {len(topo.links)}
+        assert syncs == n_chunks + 1               # the drains, the flush
+        assert traces == (2 if cold else 0)
+        assert tr.count("plan_floors") == n_chunks
+        assert tr.count("run_topology") == tr.count("run") == 1
 
 
 def test_topology_validation():
@@ -454,9 +459,51 @@ def test_reported_topology_spans_and_report():
 # --------------------------------------------- what the port refuses
 @pytest.mark.parametrize("arg", ["recorder", "resume", "fail_schedule"])
 def test_unported_arguments_raise(arg):
-    topo = _port_topo(BY_NAME["pair_clean"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """``recorder`` / ``resume`` / ``fail_schedule`` are ported with
+    ``repro_torch.replay``: they no longer raise ``NotImplementedError``
+    but reach the windowed loop, which raises on an object that is not
+    one, and with a real one the topology run == the JAX package's."""
+    import repro.replay as jrep
+    import repro_torch.replay as trep
+    jtopology = BY_NAME["pair_clean"]
+    topo = _port_topo(jtopology)
+    with pytest.raises((AttributeError, TypeError)):
         ttopo.run_topology(topo, device="cpu", **{arg: object()})
+    if arg == "recorder":
+        rec = trep.TraceRecorder(topo.sim.chunk_steps)
+        jrec = jrep.TraceRecorder(jtopology.sim.chunk_steps)
+        got = ttopo.run_topology(topo, device="cpu", recorder=rec)
+        want = jtopo.run_topology(jtopology, recorder=jrec)
+        assert [c.t for c in rec.checkpoints] == \
+            [c.t for c in jrec.checkpoints]
+        for c, jc in zip(rec.checkpoints, jrec.checkpoints):
+            for f in c.state._fields:
+                _same(getattr(c.state, f), getattr(jc.state, f), f)
+    elif arg == "resume":
+        _, trace = trep.record_topology(topo, device="cpu")
+        _, jtrace = jrep.record_topology(jtopology)
+        ckpt = trace.checkpoints[2]
+        got = ttopo.run_topology(topo, device="cpu", resume=ckpt)
+        want = jtopo.run_topology(jtopology,
+                                  resume=jtrace.checkpoints[2])
+    else:
+        cut = ttopo.link_specs(_port_topo(dataclasses.replace(
+            jtopology, links=tuple(dataclasses.replace(
+                l, failures=dataclasses.replace(
+                    l.failures, crash_s=(16,) * 4))
+                for l in jtopology.links))))
+        jcut = jtopo.link_specs(dataclasses.replace(
+            jtopology, links=tuple(dataclasses.replace(
+                l, failures=dataclasses.replace(
+                    l.failures, crash_s=(16,) * 4))
+                for l in jtopology.links)))
+        got = ttopo.run_topology(topo, device="cpu",
+                                 fail_schedule=lambda t: cut if t == 16
+                                 else None)
+        want = jtopo.run_topology(jtopology,
+                                  fail_schedule=lambda t: jcut if t == 16
+                                  else None)
+    _assert_topology_equal(got, want)
 
 
 def test_topology_without_device_raises_without_cuda(monkeypatch):
