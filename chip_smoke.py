@@ -60,8 +60,10 @@ Phases, each of which raises on failure (exit code non-zero):
    dispatches, host syncs, captures, replays and kernel launches must be
    those of the metrics-off run.
 5. Full-size phase: BFT f = 6 <-> f = 6 (n = 19, the paper's largest
-   §6.1 network), M = 65,536, window 4, phi 32, failure-free and with
-   ``crash_fraction(19, 19, 0.3, seed=2)``, through ``run_picsou``. Both
+   §6.1 network), window 4, phi 32, failure-free at M = 65,536 over 900
+   rounds and with ``crash_fraction(19, 19, 0.3, seed=2)`` at M = 32,768
+   over 32,000 rounds (the crash cell's depth, halved to pay for phase
+   10), through ``run_picsou``. Both
    runs must end fully delivered and fully quacked, with 2 x steps kernel
    launches and one graph replay per 32-round block each; failure-free
    exactly one cross copy per message and no resend, the crash run some
@@ -78,9 +80,9 @@ Phases, each of which raises on failure (exit code non-zero):
    walls) and at K = 1, must end all delivered and quacked with one
    cross copy per message, no resend and the GC frontier at M, the runs
    bit for bit equal, each within the dispatch contract; its planning
-   time, and per run the numbers of phase 5, are logged. The crash configuration of
-   phase 5, windowed, must give every output and metric of phase 5's
-   dense crash run bit for bit; its growth events and frontier
+   time, and per run the numbers of phase 5, are logged. The crash
+   configuration of phase 5 (M = 32,768), windowed, must give every
+   output and metric of phase 5's dense crash run bit for bit; its growth events and frontier
    trajectory are logged. Each run must launch the kernel 2 x steps
    times plus once per rotating chunk.
 5s. The full-width sweep: ``run_picsou_batch`` of the same link at
@@ -106,11 +108,11 @@ Phases, each of which raises on failure (exit code non-zero):
    overlap ratio.
 6. Where a graphed round's time goes: torch.profiler over a window of
    replays (started and stopped at chosen dispatches, after every
-   capture) of the dense crash configuration, of the failure-free
-   windowed link at K = 8 (W = 6,016, and W = 65,536 on a 131,072-message
-   stream, wide enough for the launch-ahead path) and of the windowed
-   crash configuration past
-   its dense migration: kernels and kernel time per round, device busy
+   capture) of the dense crash configuration (M = 32,768), of the
+   failure-free windowed link at K = 8 (W = 6,016, and W = 65,536 on a
+   131,072-message stream, wide enough for the launch-ahead path) and of
+   the windowed crash configuration past its dense migration (W = M =
+   32,768): kernels and kernel time per round, device busy
    share against the same window unprofiled and against the engine's
    full run, the host time of each replay, drain start and drain wait,
    and the replays launched ahead of an earlier drain. Then the cost of a chunk boundary: the failure-free link at
@@ -220,8 +222,42 @@ Phases, each of which raises on failure (exit code non-zero):
    (the same K = 8 run twice: captures N, then 0, and each wall) runs in
    phase 5w, where the stream runs.
 
+10. The streaming service (``repro_torch.stream``, the windowed loop's
+   horizon mode) and the runtime contracts (``repro_torch.analysis``).
+   10a at the stream selftest's shape (BFT f = 1, window 4, phi 6,
+   16-round chunks, K = 8): ``python -m repro_torch.stream --selftest``
+   on the card; the selftest's 512-message session, a chained 3-link
+   session and a palette attack (``selective_drop`` switched on at
+   chunk 4, healed at chunk 16: a breach, then a recovery), each on CUDA
+   and on the CPU, equal in the report, every live row (the JSON-lines
+   stream), SLO events, sketch, ``ObsMetrics``, capacity, width, growth
+   events, dispatches and host syncs, all delivered, with 2 x rounds +
+   rotating chunks ``quack_scan`` launches; the dense fallback refused
+   on the card with the CPU's message (``tests/test_stream.py``'s
+   crashed stream); ``python -m repro_torch.analysis --check`` on the
+   card (a K = 8 run with ``debug_checks`` under the sync debug mode:
+   at most ceil(C/K) + 2 dispatches, 0 implicit transfers, then warm
+   with 0 captures); a seeded ``.item()`` inside ``engine_guard`` must
+   raise ``SanitizerError``. 10b at full width: BFT f = 6 both sides,
+   window 4, phi 32, 32-round chunks, K = 8, ``window_slots="auto"``
+   (W = 7,616), a diurnal link (``ArrivalProcess(kind="diurnal",
+   rate=64, period=512, amplitude=0.5, seed=0)``) over 1,048,576
+   messages (16,611 rounds) and 262,144 (4,327), each session cold under
+   ``Measured`` and tracemalloc: all delivered, no problem, launches 2 x
+   rounds + rotating chunks; at 1,048,576 a ``run_simulation`` of the
+   identical spec after the session captures 0, issues the session's
+   dispatches and host syncs, and its post-hoc ``RunReport`` validates
+   with the live histogram and percentiles bit for bit. Flatness (P1
+   for a resident stream): each session's peak device memory less its
+   padded schedule (12 x (M + W) bytes) equal at both horizons within
+   ``FLAT_DEVICE_MIB``, and the 1,048,576 session's host peak inside
+   ``run()`` under ``FLAT_HOST_SHARE`` of the batch run's. Each logs its
+   wall, rounds/s and messages/s (under tracemalloc), captures and their
+   host s, device time inside replays, peak device and host memory.
+
 Programs outlive runs (``repro_torch.core.graphs``): a second run of a
-shape captures nothing. Every ``Measured`` run (phases 5, 5w, 5s, 5m, 8b)
+shape captures nothing. Every ``Measured`` run (phases 5, 5w, 5s, 5m, 8b,
+10b's sessions)
 empties the program cache first, so its wall, capture time and peak
 memory are a cold run's, comparable with earlier PRs'; the phase-4 and
 8a checks compare every counter but the captures across runs whose
@@ -260,10 +296,13 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 494.7e12
 L2_BYTES = 50e6
 SHAPE = (19, 19, 65536)          # (n_s, n_r, M) of the full-size phase
-# rounds of the full-size runs: failure-free completes at round 869; the
-# crash run is deterministic and completes at round 63,171
+# rounds of the full-size runs: failure-free completes at round 869. The
+# crash runs (phases 5, 5w, 5m and 6's crash windows) stream CRASH_M
+# messages: deterministic, they complete at round 31,437 (at M = 65,536,
+# the depth before this cut, at round 63,171 of 64,000)
 STEPS_FREE = 900
-STEPS_CRASH = 64000
+CRASH_M = 32768
+STEPS_CRASH = 32000
 # the windowed engine at full width: default_window_slots(19, 19, 4, 32,
 # 32) = 6,016 columns, 32-round chunks; the long stream sends 76 messages
 # a round (19 senders x window 4) and ends 60 rounds after its last send
@@ -1593,13 +1632,13 @@ def _full_run(name: str, sim, fails, plan_s=None, cold: bool = True):
 
 def full_phase(steps_free: int, steps_crash: int):
     from repro_torch.core import FailureScenario, SimConfig
-    m = SHAPE[2]
     crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
     launches = [0, 0]
     out = {}
-    for name, fails, steps in (("failure-free", FailureScenario.none(),
-                                steps_free),
-                               ("crash 0.3", crash, steps_crash)):
+    for name, fails, steps, m in (("failure-free", FailureScenario.none(),
+                                   steps_free, SHAPE[2]),
+                                  ("crash 0.3", crash, steps_crash,
+                                   CRASH_M)):
         sim = SimConfig(n_msgs=m, steps=steps, window=4, phi=32)
         run, run_m = _full_run(f"full {name}", sim, fails)
         total, no_lost, _ = run_m.launches
@@ -1674,7 +1713,7 @@ def windowed_phase(dense_crash, steps_crash: int):
     kept = {"long": (long[8][0], long[8][2])}
     del long, res
 
-    sim = SimConfig(n_msgs=SHAPE[2], steps=steps_crash, window=4, phi=32,
+    sim = SimConfig(n_msgs=CRASH_M, steps=steps_crash, window=4, phi=32,
                     window_slots="auto", chunk_steps=CHUNK)
     run, run_m = _full_run("windowed crash 0.3", sim,
                            FailureScenario.crash_fraction(19, 19, 0.3,
@@ -1847,13 +1886,13 @@ def metrics_phase(dense_free, kept: dict, sweep_off) -> list:
     del run, off
 
     crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
-    sim = SimConfig(n_msgs=SHAPE[2], steps=STEPS_CRASH, window=4, phi=32,
+    sim = SimConfig(n_msgs=CRASH_M, steps=STEPS_CRASH, window=4, phi=32,
                     window_slots="auto", chunk_steps=CHUNK,
                     collect_metrics=True)
     run, run_m = _full_run("metrics windowed crash 0.3", sim, crash)
     off, off_m = kept.pop("crash")
     _on_against_off("windowed crash 0.3", [run.result], run_m, [off],
-                    off_m, STEPS_CRASH, SHAPE[2])
+                    off_m, STEPS_CRASH, CRASH_M)
     count(run_m)
     del run, off
 
@@ -2027,7 +2066,7 @@ def profile_phase(dense_round_ms: float, long_round_ms: float,
     cfg = RSMConfig.bft(6)
     crash = FailureScenario.crash_fraction(19, 19, 0.3, seed=2)
     spec = build_spec(cfg, cfg, SimConfig(
-        n_msgs=SHAPE[2], steps=7 * 32 + 1, window=4, phi=32), crash)
+        n_msgs=CRASH_M, steps=7 * 32 + 1, window=4, phi=32), crash)
     added = {"dense": [profile_window("dense", spec, 1, 7, dense_round_ms)]}
     spec = dataclasses.replace(spec, collect_metrics=True)
     added["dense"].append(profile_window("dense, metrics on", spec, 1, 7,
@@ -2057,7 +2096,7 @@ def profile_phase(dense_round_ms: float, long_round_ms: float,
 
     def plan(steps):
         return build_spec(cfg, cfg, SimConfig(
-            n_msgs=SHAPE[2], steps=steps, window=4, phi=32,
+            n_msgs=CRASH_M, steps=steps, window=4, phi=32,
             window_slots="auto", chunk_steps=CHUNK), crash)
 
     events = run_simulation(plan(1024)).window_growth_events
@@ -3154,6 +3193,353 @@ def replay_full_phase(f: int = 6, m: int = SWEEP_M,
     return launches
 
 
+# ----------------------------------------------------------- phase 10
+# phase 10a at the stream selftest's shape (BFT f = 1, window 4, phi 6,
+# 16-round chunks, K = 8); phase 10b at full width: BFT f = 6 both sides,
+# window 4, phi 32, 32-round chunks, K = 8, window_slots="auto"
+# (stream_window_slots: W = 7,616 at both horizons), a diurnal link of 64
+# messages a round on average, swinging by half over 512 rounds (peak
+# 133 a round), over two horizons
+STREAM_PROCESS = dict(kind="diurnal", rate=64.0, period=512, amplitude=0.5,
+                      seed=0)
+STREAM_HORIZONS = (1_048_576, 262_144)
+# P1 for a resident stream: the session's peak device memory less its
+# padded schedule (12 bytes a message and a window slot, O(M) by design)
+# equal at both horizons within FLAT_DEVICE_MIB; the session's host peak
+# inside run() under FLAT_HOST_SHARE of the batch run's on the same spec
+FLAT_DEVICE_MIB = 1.0
+FLAT_HOST_SHARE = 1 / 8
+
+
+def _stream_report(res) -> dict:
+    """A session's report without its trace count (a first use in a
+    cached set: it depends on what ran before, dispatches do not)."""
+    d = res.to_json_dict()
+    d["counters"] = {k: v for k, v in d["counters"].items()
+                     if k != "traces"}
+    return d
+
+
+def _same_sessions(a, b, rows, what: str) -> None:
+    """Two sessions' results agree in their report, every live row (their
+    JSON-lines streams ``rows``), SLO events, sketch, ``ObsMetrics``,
+    capacity, width, growth events, dispatches and host syncs."""
+    checks = {
+        "report": _stream_report(a) == _stream_report(b),
+        "live rows": rows[0].read_text() == rows[1].read_text(),
+        "slo events": [e.to_dict() for e in a.slo_events]
+        == [e.to_dict() for e in b.slo_events],
+        "sketch": np.array_equal(a.sketch.hist, b.sketch.hist),
+        "obs": [o.to_dict() for o in a.obs] == [o.to_dict() for o in b.obs],
+        "capacity": a.capacity == b.capacity,
+        "width": a.final_window_slots == b.final_window_slots,
+        "growth": [dataclasses.asdict(e) for e in a.growth_events]
+        == [dataclasses.asdict(e) for e in b.growth_events],
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad or a.problems or b.problems:
+        raise AssertionError(f"{what}: differ in {bad}; problems "
+                             f"{a.problems} / {b.problems}")
+
+
+def _path_session(device, out: Path, name: str, fail_schedule=None,
+                  **cfg):
+    """The stream selftest's session (BFT f = 1, window 4, phi 6, 16-round
+    chunks, K = 8, constant 4 a round, 512 messages) on ``device``, its
+    live rows in ``out``; (session, result)."""
+    from repro_torch.core import RSMConfig, SimConfig
+    from repro_torch.stream import StreamConfig, StreamSession
+    b = RSMConfig.bft(1)
+    sim = SimConfig(**{**dict(window=4, phi=6, window_slots="auto",
+                              chunk_steps=16, superchunk=8),
+                       **cfg.pop("sim", {})})
+    cfg.setdefault("horizon", 512)
+    sess = StreamSession(b, b, sim, StreamConfig(
+        jsonl_path=str(out / f"{name}-{device}.jsonl"), **cfg),
+        device=device)
+    chunk = sess.spec.chunk_steps
+    sched = None if fail_schedule is None else {
+        int(t) * chunk: f for t, f in fail_schedule.items()}
+    return sess, sess.run(fail_schedule=sched)
+
+
+def stream_path_phase() -> list:
+    """Phase 10a; returns the main path's launch counts."""
+    import tempfile
+
+    from repro_torch.adversary import streaming_attack
+    from repro_torch.analysis import SanitizerError, engine_guard
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.core import FailureScenario, RSMConfig, SimConfig
+    from repro_torch.core.simulator import (_run_windowed_batch,
+                                            spec_with_failures)
+    from repro_torch.obs.live import SLOConfig
+    from repro_torch.stream import ArrivalProcess, build_stream_spec
+    from repro_torch.stream.__main__ import main as stream_main
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        rc, _, _ = _counted(lambda: stream_main(
+            ["--selftest", "--out", str(out / "selftest")]), launches)
+        if rc:
+            raise AssertionError(f"repro_torch.stream --selftest exited "
+                                 f"{rc}")
+        log("[stream path] python -m repro_torch.stream --selftest on the "
+            "card: exit 0 (live == post-hoc RunReport, stream dispatches "
+            "== batch dispatches, all delivered, quiet watchdogs, trace "
+            "schema)")
+
+        cases = [
+            ("session", {}, None),
+            ("chained", dict(horizon=256, links=3, chained=True), None),
+            ("attack", dict(horizon=1024, utilization=0.5, report_every=2,
+                            slo=SLOConfig(p99_latency_rounds=24,
+                                          resend_rate=0.25,
+                                          frontier_stall_chunks=2),
+                            sim=dict(window=2, phi=3)),
+             {4: streaming_attack("selective_drop", 4, 4),
+              16: FailureScenario.none()}),
+        ]
+        for name, cfg, sched in cases:
+            res = {}
+            for dev in ("cuda", "cpu"):
+                kw = dict(cfg, sim=dict(cfg.get("sim", {})))
+                if dev == "cuda":
+                    (sess, res[dev]), _, got = _counted(
+                        lambda: _path_session(dev, out, name, sched, **kw),
+                        launches)
+                else:
+                    sess, res[dev] = _path_session(dev, out, name, sched,
+                                                   **kw)
+            links = sess.config.links
+            # one launch serves every lane
+            if got != _from(sess.spec, 0):
+                raise AssertionError(f"stream path {name}: launches {got},"
+                                     f" expected {_from(sess.spec, 0)}")
+            _same_sessions(res["cuda"], res["cpu"],
+                           [out / f"{name}-{d}.jsonl" for d in ("cuda",
+                                                                "cpu")],
+                           f"stream path {name} cuda vs cpu")
+            r = res["cuda"]
+            if r.delivered != sess.spec.m * links:
+                raise AssertionError(f"stream path {name}: delivered "
+                                     f"{r.delivered}")
+            events = [(e.kind, e.t, e.recovered) for e in r.slo_events]
+            if sched is not None:
+                chunk = sess.spec.chunk_steps
+                breach = [e for e in r.slo_events if not e.recovered]
+                if not breach or not any(e.recovered for e in r.slo_events) \
+                        or min(e.t for e in breach) < 4 * chunk:
+                    raise AssertionError(f"stream path {name}: SLO events "
+                                         f"{events}")
+            log(f"[stream path] {name} ({links} lane(s), M={sess.spec.m}, "
+                f"{r.rounds} rounds, W={r.final_window_slots}): CUDA == CPU"
+                f" in the report, {r.live.total_rows} live rows, SLO events"
+                f", sketch, ObsMetrics, capacity, width, growth; "
+                f"{r.counters['dispatches']} dispatches, "
+                f"{r.counters['syncs']} host syncs; delivered "
+                f"{r.delivered}; percentiles {r.percentiles()}; SLO events "
+                f"{events}")
+
+        # the dense fallback refused on the card, with the CPU's message
+        crash = FailureScenario.crash_fraction(4, 4, 0.25, seed=3,
+                                               at_step=8)
+        b = RSMConfig.bft(1)
+        spec = build_stream_spec(b, b, SimConfig(
+            window=1, phi=6, window_slots="auto", chunk_steps=8,
+            superchunk=8), ArrivalProcess(), 192)
+        spec = spec_with_failures(spec, crash)
+        msgs = {}
+        for dev in ("cuda", "cpu"):
+            try:
+                _run_windowed_batch([spec], torch.device(dev),
+                                    drain_sink=_RefuseSink())
+            except RuntimeError as e:
+                msgs[dev] = str(e)
+            else:
+                raise AssertionError(f"stream path: the dense fallback ran"
+                                     f" on {dev}")
+        if "window overflow" not in msgs["cuda"] or \
+                msgs["cuda"] != msgs["cpu"]:
+            raise AssertionError(f"stream path: refusal {msgs}")
+        log(f"[stream path] dense fallback refused on the card as on the "
+            f"CPU: {msgs['cuda'][:160]}...")
+
+        # the runtime contracts on the card
+        report = out / "ANALYSIS.json"
+        rc, _, _ = _counted(lambda: analysis_main(
+            ["--check", "--json", str(report)]), launches)
+        sec = json.loads(report.read_text())["sanitizer"]
+        if rc or not sec["ok"] or sec["warm"]["recompiles"] or \
+                sec["cold"]["transfers"] or sec["warm"]["transfers"]:
+            raise AssertionError(f"repro_torch.analysis --check: rc {rc}, "
+                                 f"{sec}")
+        log(f"[stream path] python -m repro_torch.analysis --check on the "
+            f"card (debug_checks, M={sec['shape']['m']}, "
+            f"W={sec['shape']['window_slots']}, K=8): cold "
+            f"{sec['cold']['dispatches']} dispatches (contract "
+            f"{sec['cold']['contract']['max_dispatches']}), "
+            f"{sec['cold']['host_syncs']} host syncs, "
+            f"{sec['cold']['recompiles']} captures, 0 implicit transfers; "
+            f"warm {sec['warm']['dispatches']} dispatches, "
+            f"{sec['warm']['recompiles']} captures, 0 implicit transfers")
+    x = torch.arange(4, device="cuda")
+    try:
+        with engine_guard():
+            x.sum().item()
+    except SanitizerError as e:
+        log(f"[stream path] a seeded .item() inside engine_guard on the "
+            f"card: SanitizerError ({str(e).splitlines()[0][:100]})")
+    else:
+        raise AssertionError("engine_guard let a seeded .item() through")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("the sync debug mode outlived the guard")
+    return launches
+
+
+class _RefuseSink:
+    """A horizon-mode sink for the refusal check: it must see no final
+    call."""
+
+    def on_chunk(self, *args) -> None:
+        pass
+
+    def on_final(self, *args) -> None:
+        raise AssertionError("the refused session reached its final flush")
+
+
+def _stream_full_session(horizon: int, launches):
+    """One cold 10b session under ``Measured`` and tracemalloc; (session,
+    result, Measured, host peak bytes)."""
+    import tracemalloc
+
+    from repro_torch.core import RSMConfig, SimConfig
+    from repro_torch.obs.tracer import SpanTracer
+    from repro_torch.stream import ArrivalProcess, StreamConfig, StreamSession
+    cfg = RSMConfig.bft(6)
+    sim = SimConfig(window=4, phi=32, window_slots="auto", chunk_steps=CHUNK,
+                    superchunk=8)
+    t0 = time.perf_counter()
+    sess = StreamSession(cfg, cfg, sim, StreamConfig(
+        horizon=horizon, process=ArrivalProcess(**STREAM_PROCESS)))
+    plan_s = time.perf_counter() - t0
+    tracer = SpanTracer()
+    host = [0]
+
+    def run():
+        tracemalloc.start()
+        try:
+            return sess.run(tracer=tracer)
+        finally:
+            host[0] = tracemalloc.get_traced_memory()[1]
+            tracemalloc.stop()
+
+    run_m = Measured(run)
+    res, spec = run_m.result, sess.spec
+    _count_full(launches, run_m, spec, f"stream {horizon}")
+    if res.problems or res.delivered != horizon or res.retired != horizon:
+        raise AssertionError(f"stream {horizon}: delivered {res.delivered},"
+                             f" retired {res.retired}, problems "
+                             f"{res.problems}")
+    log(f"[stream {horizon}] BFT f=6 <-> f=6, diurnal "
+        f"{STREAM_PROCESS}: {len(sess.arrivals)} loaded rounds + "
+        f"{spec.steps - len(sess.arrivals)} drain = {spec.steps} rounds, "
+        f"W={spec.window_slots} (final {res.final_window_slots}, growth "
+        f"{[(e.step, e.old_w, e.new_w) for e in res.growth_events]}); "
+        f"planning (the session's build_stream_spec) {plan_s:.3f} s, "
+        f"outside the run; under tracemalloc: "
+        + run_m.line(spec.steps, horizon)
+        + f"; {run_m.counts[0]} dispatches, {run_m.counts[1]} host syncs, "
+        f"{run_m.counts[2]} captures; host peak inside run() "
+        f"{host[0] / 2 ** 20:.3f} MiB; {res.counters['chunks_drained']} "
+        f"chunks drained, {res.live.total_rows} live rows; percentiles "
+        f"{res.percentiles()}; {tracer.count('drain_wait')} drain waits, "
+        f"drain overlap {tracer.drain_overlap_ratio():.4f}")
+    return sess, res, run_m, host[0]
+
+
+def _count_full(launches, run_m, spec, what: str) -> None:
+    """A measured windowed run's launches: 2 x rounds + rotating chunks,
+    none discarded; added to the main path's."""
+    total, no_lost, skipped = run_m.launches
+    if (total, no_lost) != _from(spec, 0) or skipped:
+        raise AssertionError(f"{what}: launches {(total, no_lost)} "
+                             f"({skipped} discarded), expected "
+                             f"{_from(spec, 0)}")
+    launches[0] += total - no_lost
+    launches[1] += no_lost
+
+
+def stream_full_phase() -> list:
+    """Phase 10b; returns the main path's launch counts."""
+    import tracemalloc
+
+    from repro_torch.core import run_simulation
+    from repro_torch.obs.report import report_from_results
+    from repro_torch.obs.tracer import SpanTracer, tracing
+    launches = [0, 0]
+    sess, res, run_m, host = _stream_full_session(STREAM_HORIZONS[0],
+                                                  launches)
+    spec = sess.spec
+    batch_tracer = SpanTracer()
+    batch_host = [0]
+
+    def batch_run():
+        tracemalloc.start()
+        try:
+            with tracing(batch_tracer):
+                return run_simulation(spec)
+        finally:
+            batch_host[0] = tracemalloc.get_traced_memory()[1]
+            tracemalloc.stop()
+
+    batch_m = Measured(batch_run, cold=False)
+    _count_full(launches, batch_m, spec, "stream batch")
+    report = report_from_results([batch_m.result], batch_tracer,
+                                 lane_names=["link"])
+    problems = report.validate()
+    post = report.obs["link"]
+    live = np.asarray(res.sketch.lane_sum(), dtype=np.int64)
+    if problems or not np.array_equal(
+            live, np.asarray(post.latency_hist, dtype=np.int64)) or \
+            res.percentiles() != post.percentiles():
+        raise AssertionError(f"stream: live {res.percentiles()} vs post-hoc"
+                             f" {post.percentiles()}; {problems}")
+    if batch_m.counts[2] or batch_m.counts[:2] != (
+            res.counters["dispatches"], res.counters["syncs"]) or \
+            run_m.counts[:2] != batch_m.counts[:2]:
+        raise AssertionError(f"stream: session counts {run_m.counts}, "
+                             f"batch {batch_m.counts}")
+    log(f"[stream batch] run_simulation of the identical spec after the "
+        f"session, under tracemalloc: "
+        + batch_m.line(spec.steps, spec.m)
+        + f"; {batch_m.counts[2]} captures, {batch_m.counts[0]} dispatches"
+        f" == the session's {run_m.counts[0]}; host peak "
+        f"{batch_host[0] / 2 ** 20:.3f} MiB; the post-hoc RunReport "
+        f"validates and its histogram and percentiles "
+        f"{post.percentiles()} == the live ones bit for bit")
+    del batch_m, report
+    peaks = {STREAM_HORIZONS[0]: (run_m.peak_mib, spec.m, spec.window_slots)}
+    sess2, res2, run2, host2 = _stream_full_session(STREAM_HORIZONS[1],
+                                                    launches)
+    peaks[STREAM_HORIZONS[1]] = (run2.peak_mib, sess2.spec.m,
+                                 sess2.spec.window_slots)
+    flat = {h: p - 12 * (m + w) / 2 ** 20 for h, (p, m, w) in peaks.items()}
+    spread = max(flat.values()) - min(flat.values())
+    log(f"[stream flat] device: peak less the padded schedule "
+        + ", ".join(f"{h}: {p:.3f} - {12 * (m + w) / 2 ** 20:.3f} = "
+                    f"{flat[h]:.3f} MiB" for h, (p, m, w) in peaks.items())
+        + f"; spread {spread:.3f} MiB (limit {FLAT_DEVICE_MIB} MiB); host: "
+        f"the session's peak inside run() {host / 2 ** 20:.3f} MiB at "
+        f"{STREAM_HORIZONS[0]} and {host2 / 2 ** 20:.3f} MiB at "
+        f"{STREAM_HORIZONS[1]}, the batch run's {batch_host[0] / 2 ** 20:.3f}"
+        f" MiB ({host / batch_host[0]:.4f} of it; limit "
+        f"{FLAT_HOST_SHARE:.3f})")
+    if spread > FLAT_DEVICE_MIB or host >= FLAT_HOST_SHARE * batch_host[0]:
+        raise AssertionError("stream: device or host memory not flat")
+    return launches
+
+
 def build_all() -> dict:
     """Phase 2: every source, one nvcc each, all started together. Returns
     {source name: library path}."""
@@ -3317,12 +3703,20 @@ def main() -> int:
     f_launches = replay_full_phase()
     log(f"[time] replay full-width phase {time.perf_counter() - t1:.1f} s"
         f"; phase 9 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp_launches = stream_path_phase()
+    log(f"[time] stream path phase {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    sf_launches = stream_full_phase()
+    log(f"[time] stream full-width phase {time.perf_counter() - t1:.1f} s"
+        f"; phase 10 {time.perf_counter() - t0:.1f} s")
 
     # the main path's launches: the full-size runs, dense and windowed,
     # the sweep, the same runs with metrics on, the full-width topologies
-    # and applications, and the recorded, replayed and forked runs
+    # and applications, the recorded, replayed and forked runs, and the
+    # streaming sessions with their batch run
     main = [launches, w_launches, s_launches, m_launches, t_launches,
-            r_launches, f_launches]
+            r_launches, f_launches, sp_launches, sf_launches]
     rows = [("quack_scan", dict(kern[True], launches=sum(
                  x[0] for x in main), library_ms=None)),
             ("quack_scan_no_lost", dict(kern[False], launches=sum(

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..kernels.quack_scan import quack_scan as _quack_scan
+from .snapshot import explicit
 
 __all__ = ["Programs", "program_set", "clear_programs", "CACHE_SETS",
            "capture_count", "replay_count", "first_use_count"]
@@ -144,13 +145,15 @@ def _leaves(state) -> List[torch.Tensor]:
 
 def copy_into(dst, src) -> None:
     """Copy the leaves of tree ``src`` (tensors or numpy arrays) into
-    those of tree ``dst``, in place."""
+    those of tree ``dst``, in place (an explicit move: an upload is no
+    host read)."""
     dst, src = _leaves(dst), _leaves(src)
     if len(dst) != len(src):
         raise ValueError(f"copy_into: {len(src)} leaves into {len(dst)}")
-    for d, x in zip(dst, src):
-        d.copy_(x if isinstance(x, torch.Tensor)
-                else torch.from_numpy(np.array(x)))
+    with explicit():
+        for d, x in zip(dst, src):
+            d.copy_(x if isinstance(x, torch.Tensor)
+                    else torch.from_numpy(np.array(x)))
 
 
 def _clone(state):
@@ -235,7 +238,10 @@ class Programs:
         ``clear_programs`` does this for every cached set."""
         self._progs.clear()
 
+    @explicit()
     def _capture(self, key: Hashable, body: Body) -> _Captured:
+        # explicit: building a program is no host read, and the CUDA
+        # graph API synchronises the device
         before = _counts()
         stream = self._stream
         stream.wait_stream(torch.cuda.current_stream())

@@ -96,7 +96,7 @@ from .graphs import Programs, copy_into, program_set
 from .quack import (claim_bitmask, missing_below_horizon,
                     stake_quorum_bitmap, weighted_quorum_prefix)
 from .snapshot import WINDOW_FILLS as _WINDOW_FILLS
-from .snapshot import PinnedDrain, pad_window, to_host
+from .snapshot import PinnedDrain, explicit, pad_window, to_host
 from .snapshot import window_shapes as _window_shapes
 from .types import (FailureScenario, RSMConfig, SimConfig,
                     lcm_scale_factors)
@@ -838,19 +838,30 @@ def _init_state(spec: SimSpec, w: int, device, lanes: int = 1) -> SimState:
     )
 
 
+# messages a host pass over an O(M) schedule tuple converts at a time, so
+# that planning a run holds O(block) numpy beside its one int32 copy
+_HOST_BLOCK = 1 << 12
+
+
+def _blocks(seq):
+    """``(lo, int64 array)`` over consecutive blocks of a sequence."""
+    for lo in range(0, len(seq), _HOST_BLOCK):
+        yield lo, np.asarray(seq[lo:lo + _HOST_BLOCK], dtype=np.int64)
+
+
 def _padded_sched(spec: SimSpec, w: int, device):
     """The schedule padded by ``w`` never-sent slots, so that a window at
     any base <= M reads inside it."""
-    osend, orecv, ostep = (np.asarray(a, dtype=np.int64) for a in
-                           (spec.orig_sender, spec.orig_recv,
-                            spec.orig_step))
 
-    def pad(a, fill):
-        return torch.tensor(np.concatenate([a, np.full(w, fill)]),
-                            dtype=_I32, device=device)
+    def pad(seq, fill, cap=None):
+        a = np.full(len(seq) + w, fill, dtype=np.int32)
+        for lo, blk in _blocks(seq):
+            a[lo:lo + len(blk)] = blk if cap is None else \
+                np.minimum(blk, cap)
+        return torch.from_numpy(a).to(device)
 
-    return (pad(osend, 0), pad(orecv, 0),
-            pad(np.minimum(ostep, _NEVER_STEP), _NEVER_STEP))
+    return (pad(spec.orig_sender, 0), pad(spec.orig_recv, 0),
+            pad(spec.orig_step, _NEVER_STEP, _NEVER_STEP))
 
 
 def _sched_window(sched_p, base: torch.Tensor, w: int):
@@ -968,6 +979,7 @@ def _layout_set(layout: _LayoutKey, n_b: int, w: int, device) -> Programs:
     nspec = layout.spec
     collect = nspec.collect_metrics
 
+    @explicit()              # a new set's uploads
     def build() -> Programs:
         state = _carry(_init_state(nspec, w, device, n_b),
                        init_metrics_carry(w, device, n_b)
@@ -984,10 +996,11 @@ def _fresh_set(specs: List[SimSpec], layout: _LayoutKey, w: int,
     specs' ``FailArrays`` and a fresh state copied into it."""
     n_b, collect = len(specs), layout.spec.collect_metrics
     progs = _layout_set(layout, n_b, w, device)
-    copy_into(progs.keep[0], _fail_arrays(specs, device))
-    progs.load(_carry(_init_state(layout.spec, w, device, n_b),
-                      init_metrics_carry(w, device, n_b)
-                      if collect else None))
+    with explicit():         # the run's uploads
+        copy_into(progs.keep[0], _fail_arrays(specs, device))
+        progs.load(_carry(_init_state(layout.spec, w, device, n_b),
+                          init_metrics_carry(w, device, n_b)
+                          if collect else None))
     return progs
 
 
@@ -1255,9 +1268,10 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
     host = to_host(list(state) + ([] if mc is None else list(mc)))
     state = SimState(*host[:len(SimState._fields)])
     if mc is not None:
-        mc = migrate_dense_metrics(
-            MetricsCarry(*host[len(SimState._fields):]), bases, send_step,
-            m, device)
+        with explicit():     # an upload
+            mc = migrate_dense_metrics(
+                MetricsCarry(*host[len(SimState._fields):]), bases,
+                send_step, m, device)
     w = state.deliver_time.shape[-1]
     shapes = _window_shapes(n_s, n_r, m)
     dense = {
@@ -1289,11 +1303,12 @@ def _migrate_dense_batch(spec: SimSpec, state: SimState,
 
 # -------------------------------------------------- host-side helpers
 def _max_msg_by_round(spec: SimSpec) -> np.ndarray:
-    """r[t] = highest message index dispatched at or before round t."""
-    ostep = np.asarray(spec.orig_step, dtype=np.int64)
+    """r[t] = highest message index dispatched at or before round t (the
+    schedule read a block at a time: O(steps) host memory)."""
     r = np.full(max(spec.steps, 1), -1, dtype=np.int64)
-    valid = ostep < spec.steps
-    np.maximum.at(r, ostep[valid], np.nonzero(valid)[0])
+    for lo, ostep in _blocks(spec.orig_step):
+        valid = ostep < spec.steps
+        np.maximum.at(r, ostep[valid], lo + np.nonzero(valid)[0])
     return np.maximum.accumulate(r)
 
 
@@ -1337,14 +1352,27 @@ def _concat_metrics(n_b: int, metric_parts) -> StepMetrics:
 def _run_windowed_batch(specs: List[SimSpec], device, commit_floors=None,
                         *, fail_schedule=None, recorder=None,
                         resume: Optional[ChunkCheckpoint] = None,
-                        ) -> List[SimResult]:
+                        drain_sink=None) -> List[SimResult]:
     """The pipelined windowed loop, in the ambient tracer's ``run`` span
-    (see ``_run_windowed_batch_impl``)."""
+    (see ``_run_windowed_batch_impl``).
+
+    With ``SimConfig.debug_checks`` the whole run executes under
+    ``repro_torch.analysis.sanitizer.engine_guard``: a tensor read on the
+    host outside the sanctioned routes (``snapshot.to_host``,
+    ``snapshot.PinnedDrain``) raises ``SanitizerError`` instead of
+    silently serialising the pipeline."""
     _tr = obs_begin()
     try:
+        if specs and specs[0].debug_checks:
+            from ..analysis.sanitizer import engine_guard
+            with engine_guard():
+                return _run_windowed_batch_impl(
+                    specs, device, commit_floors,
+                    fail_schedule=fail_schedule, recorder=recorder,
+                    resume=resume, drain_sink=drain_sink)
         return _run_windowed_batch_impl(
             specs, device, commit_floors, fail_schedule=fail_schedule,
-            recorder=recorder, resume=resume)
+            recorder=recorder, resume=resume, drain_sink=drain_sink)
     finally:
         obs_end(_tr, "run", cat="engine", lanes=len(specs),
                 steps=specs[0].steps if specs else 0)
@@ -1354,7 +1382,7 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
                              commit_floors=None, *, fail_schedule=None,
                              recorder=None,
                              resume: Optional[ChunkCheckpoint] = None,
-                             ) -> List[SimResult]:
+                             drain_sink=None) -> List[SimResult]:
     """The pipelined windowed loop over lanes that share a shape (one per
     spec): the JAX package's ``_run_windowed_batch_impl``.
 
@@ -1425,8 +1453,40 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
     the host's base mirror tracks the device rotation and, for lanes
     whose adversary stakes keep ``retire_safety_stakes_ok``, that every
     retired slot is held by at least one receiver replica (GC safety).
+
+    ``drain_sink`` switches the loop into **horizon mode** (the
+    ``repro_torch.stream`` session): M is a message horizon rather than
+    an allocation. No (B, ..., M) output mirror, ``send_step`` mirror,
+    round-metric or block history is kept: each drained inner chunk goes
+    to ``drain_sink.on_chunk(t_end, metrics, queue, block, bases)``
+    (``StepMetrics`` of (B, c) arrays, the chunk's ``ChunkQueue`` of
+    numpy arrays, its cumulative ``MetricsBlock``, the lanes' retired
+    prefixes after it), the final unrotated chunk included, and after
+    the final flush ``drain_sink.on_final(state, mc, bases, w,
+    growth_events, t)``, where ``state`` is the final window's outputs
+    as a ``ChunkQueue`` (the columns the batch flush fetches; ``count``
+    the live columns) and ``mc`` the ``MetricsBlock`` of the final
+    accumulators that ``obs_from_final`` reads; the call returns ``[]``.
+    The arrays are the sink's to keep. Host memory stays O(B * W) a
+    dispatch, and the programs, spans and launch-ahead decisions are
+    those of batch mode, so a session issues the batch run's dispatches
+    and replays its graphs. It requires ``collect_metrics`` and refuses
+    ``recorder`` / ``resume`` (``ValueError``: checkpoints hold the O(M)
+    mirrors); a window may grow, but a dense migration (O(M) state)
+    raises ``RuntimeError`` before it allocates anything.
     """
     spec0 = specs[0]
+    if drain_sink is not None:
+        if recorder is not None or resume is not None:
+            raise ValueError("drain_sink (horizon mode) is incompatible "
+                             "with recorder/resume: checkpoints capture "
+                             "the O(M) output mirrors horizon mode "
+                             "exists to avoid")
+        if not spec0.collect_metrics:
+            raise ValueError("drain_sink requires collect_metrics=True: "
+                             "the MetricsBlock snapshots riding the "
+                             "drain are the live telemetry feed")
+    retain = drain_sink is None       # batch mode: the O(M) host mirrors
     n_b = len(specs)
     n_s, n_r, m = spec0.n_s, spec0.n_r, spec0.m
     steps = spec0.steps
@@ -1436,24 +1496,28 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
     layout = _LayoutKey(spec0)
     drains = PinnedDrain(device)
     dispatched_by = _max_msg_by_round(spec0)
-    ostep = np.asarray(spec0.orig_step, dtype=np.int64)
+    ostep = np.asarray(spec0.orig_step, dtype=np.int64) if retain else None
 
     if resume is None:
         w = spec0.window_slots
         progs = _fresh_set(specs, layout, w, device)
-        out_quack = np.full((n_b, n_s, m), -1, dtype=np.int32)
-        out_deliver = np.full((n_b, m), -1, dtype=np.int32)
-        out_retry = np.zeros((n_b, n_s, m), dtype=np.int32)
-        out_recv = np.zeros((n_b, n_r, m), dtype=bool)
+        if retain:
+            out_quack = np.full((n_b, n_s, m), -1, dtype=np.int32)
+            out_deliver = np.full((n_b, m), -1, dtype=np.int32)
+            out_retry = np.zeros((n_b, n_s, m), dtype=np.int32)
+            out_recv = np.zeros((n_b, n_r, m), dtype=bool)
+            # each lane's dispatch round of every message (-1: not yet),
+            # filled as its floor opens
+            send_step = np.full((n_b, m), -1, dtype=np.int64)
+        else:
+            out_quack = out_deliver = out_retry = out_recv = None
+            send_step = None
         bases = np.zeros(n_b, dtype=np.int64)
         bases_hist = [bases.copy()]
         floors = np.full(n_b, m, dtype=np.int64)
         t = 0
         metric_parts: List[StepMetrics] = []
         growth_events: List[WindowGrowthEvent] = []
-        # each lane's dispatch round of every message (-1: not yet),
-        # filled as its floor opens
-        send_step = np.full((n_b, m), -1, dtype=np.int64)
         open_floor = np.zeros(n_b, dtype=np.int64)
     else:
         if len(resume.bases) != n_b:
@@ -1485,10 +1549,11 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
                 np.arange(m, dtype=np.int64)[None, :] < floors[:, None],
                 ostep[None, :], -1)
         open_floor = floors.copy()
-        progs.load(_carry(resume.state,
-                          resume_metrics_carry(w, bases, send_step, m,
-                                               device)
-                          if collect else None))
+        with explicit():     # the resume's uploads
+            progs.load(_carry(resume.state,
+                              resume_metrics_carry(w, bases, send_step, m,
+                                                   device)
+                              if collect else None))
     fail, plan = progs.keep
     outs = (out_quack, out_deliver, out_retry, out_recv)
     obs_parts: List[MetricsBlock] = []   # drained per-chunk snapshots
@@ -1501,6 +1566,10 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         _tw = obs_begin()
         ms, qq, qd, qr, qh, qbase, qcount, oks, *blk = drains.wait(
             ent["handle"])
+
+        def _queue(i: int) -> ChunkQueue:
+            return ChunkQueue(*(x[i].copy() for x in
+                                (qq, qd, qr, qh, qbase, qcount)))
         # a successor dispatch still in flight means this wait ran while
         # the device computed
         obs_end(_tw, "drain_wait", cat="drain", k=ent["k"],
@@ -1511,12 +1580,20 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         if executed < k:
             t = ent["t0"] + executed * c
             ent["progs"].discount(ent["key"], k - executed, k)
+        # the chunks a failed guard discarded (i >= executed) reach no
+        # mirror and no sink
         for i in range(executed):
-            metric_parts.append(StepMetrics(*(
-                ms[i, :, :, j].copy() for j in range(ms.shape[3]))))
-            if blk:
-                obs_parts.append(MetricsBlock(*(x[i].copy() for x in blk)))
+            msp = StepMetrics(*(ms[i, :, :, j].copy()
+                                for j in range(ms.shape[3])))
+            bp = MetricsBlock(*(x[i].copy() for x in blk)) if blk else None
+            if retain:
+                metric_parts.append(msp)
+                if bp is not None:
+                    obs_parts.append(bp)
             if not ent["rotate"]:
+                if not retain:
+                    drain_sink.on_chunk(ent["t0"] + (i + 1) * c, msp,
+                                        _queue(i), bp, bases.copy())
                 continue               # final chunk: nothing retired
             if debug and not (qbase[i] == bases).all():
                 raise RuntimeError(
@@ -1535,9 +1612,16 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
                         f"outran an undelivered message under an "
                         f"adversary whose stake budget should make that "
                         f"impossible")
-            bases = _scatter_retired(bases, qcount[i],
-                                     (qq[i], qd[i], qr[i], qh[i]), outs)
-            bases_hist.append(bases.copy())
+            if retain:
+                bases = _scatter_retired(bases, qcount[i],
+                                         (qq[i], qd[i], qr[i], qh[i]), outs)
+                bases_hist.append(bases.copy())
+            else:
+                # horizon mode: the chunk retires into the sink, O(B * W)
+                # a drain however far the stream has run
+                bases = bases + qcount[i].astype(np.int64)
+                drain_sink.on_chunk(ent["t0"] + (i + 1) * c, msp,
+                                    _queue(i), bp, bases.copy())
 
     def drain_all() -> None:
         while pending:
@@ -1564,8 +1648,9 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
                     "differing from the originals only in failure "
                     "masks, stakes or quorum thresholds (inputs the "
                     "programs read; anything else is another program)")
-            copy_into(fail, _fail_arrays(new_specs, device)._replace(
-                commit_floor=fail.commit_floor))
+            with explicit():      # an upload
+                copy_into(fail, _fail_arrays(new_specs, device)._replace(
+                    commit_floor=fail.commit_floor))
             retire_check = np.array([retire_safety_stakes_ok(s)
                                      for s in new_specs])
         # (b) a checkpoint is the boundary's exact state: the pipeline
@@ -1601,11 +1686,11 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
             obs_end(_tp, "plan_floors", cat="plan", t=t)
             if not np.array_equal(new_floors, floors):
                 floors = new_floors
-                fail.commit_floor.copy_(torch.from_numpy(
-                    floors.astype(np.int32)))
+                copy_into(fail.commit_floor,
+                          torch.from_numpy(floors.astype(np.int32)))
         # a floor that opened dispatches its newly committed messages at
-        # max(schedule round, now)
-        for b in np.nonzero(floors > open_floor)[0]:
+        # max(schedule round, now); horizon mode keeps no such mirror
+        for b in (np.nonzero(floors > open_floor)[0] if retain else ()):
             ks = np.arange(open_floor[b], floors[b])
             send_step[b, ks] = np.maximum(ostep[ks], t)
             open_floor[b] = floors[b]
@@ -1627,6 +1712,22 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
                 step=t + c - 1, scenario=b_worst, need=need, old_w=w,
                 new_w=m if new_w is None else new_w,
                 dense_migration=new_w is None))
+            if new_w is None and not retain:
+                # the width that would have held this overflow: enough
+                # slots above the stalled lane's frontier to cover its
+                # dispatch head, rounded to stream_window_slots' 64
+                span = need + 1 - int(bases[b_worst])
+                suggest = int(-(-span // 64) * 64)
+                raise RuntimeError(
+                    "stream session window overflow: the dense "
+                    "fallback would allocate the full horizon "
+                    f"(W={w} -> M={m}). Lane {b_worst}'s dispatch "
+                    f"head is {need} with GC frontier "
+                    f"{int(bases[b_worst])}, so stream_window_slots >= "
+                    f"{suggest} would have sufficed — pass "
+                    f"SimConfig(window_slots={suggest}) (or raise the "
+                    "slack in repro_torch.stream.workload."
+                    "stream_window_slots), or lower the arrival rate")
             state, mc = _split(progs.state)
             _tg = obs_begin()
             if new_w is None:
@@ -1693,11 +1794,19 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
     live = [final.quack_time, final.deliver_time, final.retry,
             final.recv_has]
     got = to_host(live + ([] if mc is None else list(snapshot_metrics(mc))))
-    _scatter_retired(bases, np.minimum(w, m - bases).clip(min=0),
-                     got[:len(live)], outs)
+    n_live = np.minimum(w, m - bases).clip(min=0)
+    if retain:
+        _scatter_retired(bases, n_live, got[:len(live)], outs)
     final_acc = MetricsBlock(*got[len(live):]) if collect else None
     _HOST_SYNCS[0] += 1
     obs_end(_tf, "final_flush", cat="drain")
+
+    if not retain:
+        drain_sink.on_final(
+            ChunkQueue(*got[:len(live)], bases.astype(np.int32),
+                       n_live.astype(np.int32)),
+            final_acc, bases.copy(), w, tuple(growth_events), t)
+        return []
 
     # a round past the run's end never came
     ss = np.where((send_step >= 0) & (send_step < steps), send_step,

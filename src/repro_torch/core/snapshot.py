@@ -11,18 +11,26 @@ Everything here works structurally on ``NamedTuple`` state trees
 ``PinnedDrain`` is the windowed engine's per-dispatch drain, which
 overlaps the device's next dispatch. ``repro_torch.replay`` serialises
 checkpoints with ``state_to_arrays`` / ``state_from_arrays``.
+
+``to_host`` and ``PinnedDrain`` are the sanctioned routes by which device
+data reaches the host: each marks its extent with ``explicit()``, which
+the runtime sanitizer (``repro_torch.analysis.sanitizer``) reads, so a
+tensor read anywhere else inside a guarded region is an implicit
+transfer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import contextlib
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["WINDOW_FILLS", "window_shapes", "to_host", "host_state",
            "device_state", "pad_window", "PinnedDrain", "state_to_arrays",
-           "state_from_arrays"]
+           "state_from_arrays", "explicit", "explicit_depth"]
 
 # window-indexed SimState fields -> neutral fill for a fresh slot
 WINDOW_FILLS = dict(recv_has=False, bcast_q=False, bcast_done=False,
@@ -36,6 +44,41 @@ def window_shapes(n_s: int, n_r: int, w: int) -> dict:
                 orig_sent=(w,), known=(n_s, n_r, w),
                 complaint=(n_s, n_r, w), repeat_c=(n_s, n_r, w),
                 retry=(n_s, w), quack_time=(n_s, w), deliver_time=(w,))
+
+
+# The sanitizer's view of the sanctioned routes: how deep this thread is
+# in explicit moves, and how many guards hold the card's sync debug mode
+# at "error" (``torch.cuda.set_sync_debug_mode`` is process-wide).
+_TLS = threading.local()
+SYNC_GUARDS = [0]
+
+
+def explicit_depth() -> int:
+    """How many ``explicit()`` extents this thread is inside."""
+    return getattr(_TLS, "depth", 0)
+
+
+@contextlib.contextmanager
+def explicit() -> Iterator[None]:
+    """Mark the extent as an explicit move between host and device.
+
+    The sanitizer counts no tensor read inside it. While a guard holds
+    the card's sync debug mode, the mode is lowered to 0 for the extent
+    and restored after it. Besides the device->host routes of this
+    module, the engine marks its uploads (host->device copies, which the
+    card's sync debug mode cannot tell from reads) and the capture of a
+    program (the CUDA graph API synchronises the device)."""
+    _TLS.depth = explicit_depth() + 1
+    mode = None
+    if SYNC_GUARDS[0]:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        _TLS.depth -= 1
+        if mode is not None:
+            torch.cuda.set_sync_debug_mode(mode)
 
 
 def _check_dtypes(tensors: Sequence[torch.Tensor]) -> None:
@@ -56,9 +99,10 @@ def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
         if t.dtype not in (torch.int32, torch.bool, torch.float32):
             raise TypeError(f"to_host takes int32/bool/float32 tensors, "
                             f"got {t.dtype}")
-    flat = torch.cat([
-        (t.view(torch.int32) if t.dtype == torch.float32 else t)
-        .reshape(-1).to(torch.int32) for t in tensors]).cpu().numpy()
+    with explicit():
+        flat = torch.cat([
+            (t.view(torch.int32) if t.dtype == torch.float32 else t)
+            .reshape(-1).to(torch.int32) for t in tensors]).cpu().numpy()
     out, at = [], 0
     for t in tensors:
         n = t.numel()
@@ -157,7 +201,8 @@ class PinnedDrain:
         """Start draining ``tensors``; returns the handle ``wait`` takes."""
         _check_dtypes(tensors)
         if not self._cuda:
-            return [t.numpy() for t in tensors]
+            with explicit():
+                return [t.numpy() for t in tensors]
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
         buf = self._bufs[self._next]
         if buf is None or buf.numel() < nbytes:
@@ -184,5 +229,6 @@ class PinnedDrain:
         if not self._cuda:
             return handle
         event, views = handle
-        event.synchronize()
-        return [v.numpy() for v in views]
+        with explicit():
+            event.synchronize()
+            return [v.numpy() for v in views]

@@ -1,7 +1,7 @@
 """The torch port's adversary palette vs the JAX package, bit for bit.
 
-Every test of ``tests/test_adversary.py`` but the streaming ones (the
-port has no ``stream/`` yet) and the benchmark smoke runs here: the
+Every test of ``tests/test_adversary.py`` but the benchmark smoke runs
+here: the
 palette constructors build the same ``FailureScenario``s in both
 packages; every adversary kind runs on the port's dense, windowed and
 superchunk engines (``device="cpu"``) and must equal ``repro``'s engine
@@ -11,6 +11,9 @@ where the stake budget makes that provable (``adversary.safety``).
 Mid-stream reconfigurations (remove / join a receiver, re-weight stakes,
 switch an adversary on) replay bit-exactly against a from-scratch run,
 the oracle and ``repro``'s replay, and capture no program once warm.
+Each palette attack switched on mid-stream in a streaming session
+(``repro_torch.stream``) breaches an SLO watchdog and recovers after the
+heal, with ``repro``'s SLO events.
 """
 
 import dataclasses
@@ -20,14 +23,17 @@ import numpy as np
 import pytest
 
 import repro.adversary as jadv
+import repro.core as jcore
 import repro.core.simulator as jsim
 import repro.replay as jrep
+import repro.stream as jstream
 import repro.topology as jtopo
 import repro_torch.adversary as tadv
 import repro_torch.core as tcore
 import repro_torch.core.refsim as trefsim
 import repro_torch.core.simulator as tsim
 import repro_torch.replay as trep
+import repro_torch.stream as tstream
 import repro_torch.topology as ttopo
 from repro.core import FailureScenario as JFailureScenario
 from repro.core import RSMConfig as JRSMConfig
@@ -388,3 +394,49 @@ def test_trace_roundtrip_preserves_adversary_state(tmp_path):
         assert np.array_equal(np.asarray(getattr(ri, f)),
                               np.asarray(getattr(r2, f))), f
         _same(getattr(ri, f), getattr(jri, f), f)
+
+
+# ----------------------------------------------- streaming SLO degradation
+
+@pytest.mark.parametrize("kind", jadv.ADVERSARY_KINDS)
+def test_streaming_attack_breaches_and_recovers(kind):
+    """Graceful degradation, not just survival: each palette attack
+    switched on mid-stream trips an SLO watchdog breach, and healing it
+    produces the matching recovery event — while the stream still
+    delivers its whole horizon; the port's session (on the CPU) gives
+    ``repro``'s SLO events, report and every live row."""
+    runs = []
+    for stream, core, adv, extra in (
+            (tstream, tcore, tadv, CPU),
+            (jstream, jcore, jadv, {})):
+        b = core.RSMConfig.bft(1)
+        sim = core.SimConfig(window=2, phi=3, chunk_steps=16,
+                             window_slots="auto")
+        slo_mod = stream.session
+        cfg = stream.StreamConfig(
+            horizon=1024, utilization=0.5,
+            slo=slo_mod.SLOConfig(p99_latency_rounds=24, resend_rate=0.25,
+                                  frontier_stall_chunks=2),
+            report_every=2)
+        sess = stream.StreamSession(b, b, sim, cfg, **extra)
+        chunk = max(sess.spec.chunk_steps, 1)
+        res = sess.run(fail_schedule={
+            4 * chunk: adv.streaming_attack(kind, 4, 4),
+            16 * chunk: core.FailureScenario.none()})
+        runs.append((res, chunk))
+    (res, chunk), (jres, _) = runs
+    assert not res.problems, (kind, res.problems)
+    breach = [e for e in res.slo_events if not e.recovered]
+    recov = [e for e in res.slo_events if e.recovered]
+    assert breach, f"{kind}: attack caused no SLO breach"
+    assert recov, f"{kind}: no SLO recovery after the heal"
+    assert all(e.t >= 4 * chunk for e in breach), kind
+    assert res.delivered == 1024
+    assert [e.to_dict() for e in res.slo_events] == \
+        [e.to_dict() for e in jres.slo_events]
+    assert list(res.live.rows) == list(jres.live.rows)
+    td, jd = res.to_json_dict(), jres.to_json_dict()
+    for d in (td, jd):
+        d["counters"] = {k: v for k, v in d["counters"].items()
+                         if k != "traces"}
+    assert td == jd
