@@ -254,6 +254,27 @@ Phases, each of which raises on failure (exit code non-zero):
    ``run()`` under ``FLAT_HOST_SHARE`` of the batch run's. Each logs its
    wall, rounds/s and messages/s (under tracemalloc), captures and their
    host s, device time inside replays, peak device and host memory.
+11. The cross-pod runtime (``repro_torch.crosspod``, ``launch.mesh``,
+   ``optim``, ``checkpoint``, ``configs``) on the gradient tree of one
+   full-width starcoder2-3b decoder layer (133,699,584 f32), the
+   program cache emptied first. 11a: the production multi-pod mesh
+   (pod 2, data 16, model 16) held on the card, the 32 (pod, data)
+   positions each with a distinct block (``P(("pod", "data"))`` on dim
+   0, 17.1 GB in): PICSOU == ATA, both == the f64 mean of the blocks,
+   the ``P()`` case == its input, CUDA == the port on the CPU on the four
+   smallest leaves, all within 1e-6, outputs on the card; device ms a
+   sync for each schedule (CUDA events, median of 5), peak device
+   memory, ``dcn_bytes_analytic``'s bytes. 11b: EF-int8 over the layer
+   for 20 steps, q and scales (and the residuals) bit for bit against
+   the CPU in every step, accumulated sent + residual == true within
+   1e-4; ms a compress + decompress. 11c: three clipped AdamW steps
+   with ``cosine_schedule`` against the CPU within 1e-6 of each leaf's
+   largest magnitude, ``step`` exact; ms an update. 11d:
+   ``CheckpointManager.save_async`` of (params, AdamW state) from the
+   card (1.6 GB), ``wait``, ``restore_tree`` onto the card bit for bit,
+   ``durable_frac`` 1.0, a corrupted shard refused with ``IOError``;
+   host s and bytes. No kernel of this repo runs here: ``repro``
+   computes all of it outside ``pl.pallas_call``.
 
 Programs outlive runs (``repro_torch.core.graphs``): a second run of a
 shape captures nothing. Every ``Measured`` run (phases 5, 5w, 5s, 5m, 8b,
@@ -3540,6 +3561,349 @@ def stream_full_phase() -> list:
     return launches
 
 
+# ----------------------------------------------------------- phase 11
+# the cross-pod runtime on the gradient tree of one full-width
+# starcoder2-3b decoder layer (src/repro/configs/starcoder2_3b.py), over
+# the production multi-pod mesh (pod 2, data 16, model 16) held on the
+# card: 32 (pod, data) positions, each with its own block of every leaf
+XP_ARCH = "starcoder2-3b"
+XP_MESH = ((2, 16, 16), ("pod", "data", "model"))
+# sync: both schedules sum 32 f32 blocks of magnitude < 6 in their own
+# order; the same limit for the optimizer, relative to a leaf's largest
+# magnitude; EF-int8 as tests/test_crosspod.py holds it
+XP_TOL = 1e-6
+XP_EF_TOL = 1e-4
+XP_EF_STEPS = 20
+XP_ADAMW_STEPS = 3
+XP_REPEATS = 5
+XP_SMALL = ("ln1", "ln2", "attn/wk", "attn/wv")   # the four smallest
+XP_COLS = 1 << 22      # columns of the f64 mean checked at a time
+
+
+def layer_shapes(cfg) -> dict:
+    """One dense decoder layer's parameter (and gradient) leaves by key
+    path, as ``src/repro/models/blocks.py:61-78,440-447`` define them."""
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    return {"ln1": (d,), "ln2": (d,), "attn/wq": (d, h, hd),
+            "attn/wk": (d, kv, hd), "attn/wv": (d, kv, hd),
+            "attn/wo": (h, hd, d), "mlp/wi": (d, f), "mlp/wg": (d, f),
+            "mlp/wo": (f, d)}
+
+
+def nest(flat: dict) -> dict:
+    """{"a/b": x} -> {"a": {"b": x}}."""
+    out: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def flat_keys(tree) -> dict:
+    from repro_torch.tree_util import tree_flatten_with_path
+    return dict(tree_flatten_with_path(tree)[0])
+
+
+def events_ms(fn, repeats: int):
+    """``fn()`` ``repeats`` times, each between CUDA events; (times in
+    call order, the last result). The previous result is dropped before
+    each call."""
+    times, out = [], None
+    for _ in range(repeats):
+        out = None
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
+
+
+def _on_device(tree, dev, what: str) -> None:
+    bad = [k for k, t in flat_keys(tree).items() if t.device.type != dev.type]
+    if bad:
+        raise AssertionError(f"{what}: {bad} left the card")
+
+
+def _sync_phase(dev, shapes: dict) -> None:
+    """11a: PICSOU against ATA at (2, 16, 16), each position's block
+    distinct, against the f64 mean, the ``P()`` case, the CPU."""
+    from repro_torch.crosspod import (ata_cross_pod_sync, dcn_bytes_analytic,
+                                      picsou_cross_pod_sync)
+    from repro_torch.launch.mesh import P, make_mesh, make_production_mesh
+    mesh = make_production_mesh(multi_pod=True)
+    pos = mesh.shape["pod"] * mesh.shape["data"]
+    spec = P(("pod", "data"))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    grads = nest({k: torch.randn((pos * s[0],) + s[1:], generator=gen,
+                                 device=dev) for k, s in shapes.items()})
+    n_local = sum(math.prod(s) for s in shapes.values())
+    in_bytes = 4 * pos * n_local
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    outs, times = {}, {}
+    fns = {"picsou": picsou_cross_pod_sync, "ata": ata_cross_pod_sync}
+    for name, fn in fns.items():
+        times[name], outs[name] = events_ms(
+            lambda: fn(grads, mesh, spec), 1 + XP_REPEATS)
+        _on_device(outs[name], dev, f"sync {name}")
+    peak = torch.cuda.max_memory_allocated()
+    g, p, a = (flat_keys(t) for t in (grads, outs["picsou"], outs["ata"]))
+    worst = dict.fromkeys(("picsou - mean", "ata - mean", "picsou - ata"),
+                          0.0)
+    for k, x in g.items():
+        if p[k].shape != x.shape or a[k].shape != x.shape or \
+                p[k].dtype != x.dtype or a[k].dtype != x.dtype:
+            raise AssertionError(f"sync {k}: {p[k].shape} {a[k].shape} "
+                                 f"against {x.shape}")
+        xb, pb, ab = (t.view(pos, -1) for t in (x, p[k], a[k]))
+        for c0 in range(0, xb.shape[1], XP_COLS):
+            cols = slice(c0, c0 + XP_COLS)
+            mean = xb[:, cols].double().mean(0)
+            pc, ac = pb[:, cols].double(), ab[:, cols].double()
+            for key, err in (("picsou - mean", pc - mean),
+                             ("ata - mean", ac - mean),
+                             ("picsou - ata", pc - ac)):
+                worst[key] = max(worst[key], err.abs().max().item())
+            del pc, ac, mean
+    # the port on the CPU, on the four smallest leaves
+    cpu_mesh = make_mesh(*XP_MESH, device="cpu")
+    small = nest({k: g[k].cpu() for k in XP_SMALL})
+    cpu_err = 0.0
+    for name, fn in fns.items():
+        got, want = flat_keys(fn(small, cpu_mesh, spec)), flat_keys(
+            outs[name])
+        for k in XP_SMALL:
+            cpu_err = max(cpu_err,
+                          (got[k] - want[k].cpu()).abs().max().item())
+    del outs, p, a, want
+    # P(): every position holds the whole leaf; the mean is the leaf
+    rep = nest({k: g[k][:s[0]] for k, s in shapes.items()})
+    rep_err = 0.0
+    for name, fn in fns.items():
+        got = flat_keys(fn(rep, mesh))
+        _on_device(got, dev, f"sync {name} P()")
+        for k, x in flat_keys(rep).items():
+            rep_err = max(rep_err, (got[k] - x).abs().max().item())
+    del grads, g, rep, got
+    moved = 2 * in_bytes
+    bound = moved / HBM_BPS * 1e3
+    for name in fns:
+        t = sorted(times[name][1:])
+        dcn = dcn_bytes_analytic(4 * n_local, mesh.shape, name)
+        log(f"[crosspod sync] {name} over {mesh.shape}, P(('pod', 'data')) "
+            f"on dim 0 (32 distinct blocks, {in_bytes / 1e9:.3f} GB in): "
+            f"{median(t):.3f} ms a sync (CUDA events, median of "
+            f"{XP_REPEATS}; {t[0]:.3f}..{t[-1]:.3f}; first call "
+            f"{times[name][0]:.3f} ms); {moved / median(t) / 1e6:.1f} GB/s"
+            f" of the {moved / 1e9:.3f} GB read and written (bound "
+            f"{bound:.3f} ms at 3.35 TB/s); the slow-link bytes it stands "
+            f"for, per chip (dcn_bytes_analytic of {4 * n_local} B): "
+            f"{dcn['dcn_per_chip']:.1f} across pods, "
+            f"{dcn['ici_per_chip']:.1f} within, reduction "
+            f"{dcn['dcn_reduction']:.1f}x")
+    log(f"[crosspod sync] peak device memory {(peak - held) / 2 ** 30:.3f} "
+        f"GiB above the {held / 2 ** 30:.3f} GiB of input (both outputs "
+        f"held); max |err|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f", P() against its input {rep_err:.3e}, CUDA against the CPU on "
+        f"{', '.join(XP_SMALL)} {cpu_err:.3e} (limit {XP_TOL:g})")
+    if max(max(worst.values()), rep_err, cpu_err) > XP_TOL:
+        raise AssertionError("crosspod sync: over the limit")
+
+
+def _compression_phase(dev, shapes: dict) -> None:
+    """11b: EF-int8 over the layer for 20 steps, CUDA against the port on
+    the CPU on the same gradients."""
+    from repro_torch.crosspod import ef_int8_compress, ef_int8_decompress
+    gen = torch.Generator(device=dev).manual_seed(12)
+    base = {k: torch.randn(s, generator=gen, device=dev) * 0.01
+            for k, s in shapes.items()}
+    res_d = {k: torch.zeros_like(x) for k, x in base.items()}
+    res_h = {k: torch.zeros(x.shape) for k, x in base.items()}
+    sent = {k: torch.zeros_like(x) for k, x in base.items()}
+    true = {k: torch.zeros_like(x) for k, x in base.items()}
+    times, cpu_s, mism = [], 0.0, 0
+    for step in range(XP_EF_STEPS):
+        grads = {k: x * (1 + 0.1 * step) for k, x in base.items()}
+        packed, deq = {}, {}
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for k, gk in grads.items():
+            packed[k], res_d[k] = ef_int8_compress(gk, res_d[k])
+            deq[k] = ef_int8_decompress(packed[k], gk.shape)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        for k, gk in grads.items():
+            sent[k] += deq[k]
+            true[k] += gk
+            (q, s, pad), res_h[k] = ef_int8_compress(gk.cpu(), res_h[k])
+            qd, sd, padd = packed[k]
+            if pad != padd or qd.device.type != dev.type or \
+                    not torch.equal(q, qd.cpu()) or \
+                    not torch.equal(s, sd.cpu()):
+                mism += 1
+        cpu_s += time.perf_counter() - t0
+    res_same = all(torch.equal(res_h[k], res_d[k].cpu()) for k in base)
+    acc = max((sent[k] + res_d[k] - true[k]).abs().max().item()
+              for k in base)
+    n = sum(x.numel() for x in base.values())
+    t = sorted(times)
+    log(f"[crosspod ef-int8] {XP_EF_STEPS} steps over the layer "
+        f"({n} f32, blocks of 256): {median(t):.3f} ms a compress + "
+        f"decompress of every leaf (CUDA events, median of {XP_EF_STEPS}; "
+        f"{t[0]:.3f}..{t[-1]:.3f}); q and scales == the port on the CPU in "
+        f"every step and leaf: {mism} mismatches; residuals bit for bit: "
+        f"{res_same}; accumulated sent + residual - true {acc:.3e} (limit "
+        f"{XP_EF_TOL:g}); the CPU twin and the copies {cpu_s:.1f} s")
+    if mism or not res_same or acc >= XP_EF_TOL:
+        raise AssertionError("crosspod ef-int8: CUDA and CPU differ")
+
+
+def _leaf_err(got, want) -> float:
+    """max |got - want| over the leaf's largest |want|, on ``got``'s
+    device."""
+    want = want.to(got.device, torch.float64)
+    return ((got.double() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _optimizer_phase(dev, shapes: dict):
+    """11c: AdamW with the cosine schedule, three steps over the layer's
+    parameters, CUDA against the port on the CPU. Returns the card's
+    (params, state)."""
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   cosine_schedule)
+    from repro_torch.tree_util import tree_map
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cfg = AdamWConfig()
+    params_d = nest({k: torch.randn(s, generator=gen, device=dev) * 0.02
+                     for k, s in shapes.items()})
+    params_h = tree_map(lambda t: t.cpu(), params_d)
+    st_d, st_h = adamw_init(params_d), adamw_init(params_h)
+    times, worst = [], 0.0
+    for _ in range(XP_ADAMW_STEPS):
+        g_d = nest({k: torch.randn(s, generator=gen, device=dev) * 1e-3
+                    for k, s in shapes.items()})
+        g_h = tree_map(lambda t: t.cpu(), g_d)
+        lr_d = cosine_schedule(st_d.step, 1, 10 * XP_ADAMW_STEPS)
+        lr_h = cosine_schedule(st_h.step, 1, 10 * XP_ADAMW_STEPS)
+        t, (params_d, st_d) = events_ms(
+            lambda: adamw_update(cfg, g_d, params_d, st_d, lr_d), 1)
+        times += t
+        params_h, st_h = adamw_update(cfg, g_h, params_h, st_h, lr_h)
+        if int(st_d.step) != int(st_h.step):
+            raise AssertionError("adamw: step differs")
+        for tree_d, tree_h in ((params_d, params_h), (st_d.m, st_h.m),
+                               (st_d.v, st_h.v)):
+            _on_device(tree_d, dev, "adamw")
+            hd = flat_keys(tree_h)
+            for k, x in flat_keys(tree_d).items():
+                worst = max(worst, _leaf_err(x, hd[k]))
+    log(f"[crosspod adamw] {XP_ADAMW_STEPS} adamw_update steps with "
+        f"cosine_schedule over the layer's parameters (clipped: grad norm "
+        f"> 1): {median(sorted(times)):.3f} ms an update (CUDA events, "
+        f"median of {XP_ADAMW_STEPS}; {', '.join(f'{x:.3f}' for x in times)}"
+        f"); step {int(st_d.step)} == the CPU's; max |CUDA - CPU| over a "
+        f"leaf's largest |value| {worst:.3e} (limit {XP_TOL:g})")
+    if worst > XP_TOL:
+        raise AssertionError("adamw: CUDA and CPU differ")
+    return params_d, st_d
+
+
+def _checkpoint_phase(dev, params, opt) -> None:
+    """11d: ``CheckpointManager.save_async`` of (params, AdamW state)
+    from the card, ``wait``, ``restore_tree`` onto the card bit for bit,
+    and a corrupted shard refused."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager, restore_tree
+    from repro_torch.tree_util import tree_leaves, tree_map
+    tree = (params, opt)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        mgr = CheckpointManager(d, n_shards=4)
+        t0 = time.perf_counter()
+        mgr.save_async(1, tree)
+        copy_s = time.perf_counter() - t0
+        mgr.wait(timeout=600)
+        write_s = time.perf_counter() - t0 - copy_s
+        res = mgr.result(1)
+        mgr.close()
+        step_dir = Path(d) / "step_00000001"
+        disk = sum(f.stat().st_size for f in step_dir.iterdir())
+        template = tree_map(torch.empty_like, tree)
+        t0 = time.perf_counter()
+        out, step = restore_tree(template, d)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(a.device.type == dev.type and a.dtype == b.dtype
+                   and torch.equal(a, b)
+                   for a, b in zip(tree_leaves(out), tree_leaves(tree)))
+        del out
+        with open(step_dir / "shard_0000.npz", "r+b") as f:
+            f.seek(30)
+            f.write(b"\x00\x01\x02")
+        try:
+            restore_tree(template, d)
+            refused = False
+        except IOError:
+            refused = True
+    frac = res["replication"]["durable_frac"] if res else None
+    log(f"[crosspod checkpoint] (params, AdamW state) from the card, "
+        f"{nbytes / 1e9:.3f} GB in {len(tree_leaves(tree))} leaves, 4 "
+        f"shards: save_async {copy_s:.3f} s host (the copy off the card), "
+        f"wait {write_s:.3f} s (npz + sha256 + rename), {disk / 1e9:.3f} GB"
+        f" on disk, restore_tree onto the card {restore_s:.3f} s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s); step {step}, bit for bit "
+        f"on CUDA: {same}; durable_frac {frac}; a corrupted shard raises "
+        f"IOError: {refused}")
+    if not (same and step == 1 and frac == 1.0 and refused):
+        raise AssertionError("checkpoint: round trip or replication failed")
+
+
+def crosspod_phase(dev) -> None:
+    """Phase 11: the cross-pod runtime (``repro_torch.crosspod``,
+    ``launch.mesh``, ``optim``, ``checkpoint``) on a full-width layer."""
+    from repro_torch import configs
+    from repro_torch.core import graphs
+    graphs.clear_programs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(XP_ARCH)
+    shapes = layer_shapes(cfg)
+    log(f"[crosspod] {XP_ARCH} layer ({cfg.d_model} wide, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}): "
+        f"{sum(math.prod(s) for s in shapes.values())} parameters; mesh "
+        f"{dict(zip(XP_MESH[1], XP_MESH[0]))} on one card")
+    for name, fn in (("11a sync", _sync_phase),
+                     ("11b ef-int8", _compression_phase)):
+        t0 = time.perf_counter()
+        fn(dev, shapes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[time] {name} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    params, opt = _optimizer_phase(dev, shapes)
+    log(f"[time] 11c adamw {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _checkpoint_phase(dev, params, opt)
+    log(f"[time] 11d checkpoint {time.perf_counter() - t0:.1f} s")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def build_all() -> dict:
     """Phase 2: every source, one nvcc each, all started together. Returns
     {source name: library path}."""
@@ -3710,6 +4074,9 @@ def main() -> int:
     sf_launches = stream_full_phase()
     log(f"[time] stream full-width phase {time.perf_counter() - t1:.1f} s"
         f"; phase 10 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    crosspod_phase(dev)
+    log(f"[time] cross-pod phase {time.perf_counter() - t0:.1f} s")
 
     # the main path's launches: the full-size runs, dense and windowed,
     # the sweep, the same runs with metrics on, the full-width topologies
