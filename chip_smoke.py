@@ -275,6 +275,35 @@ Phases, each of which raises on failure (exit code non-zero):
    ``durable_frac`` 1.0, a corrupted shard refused with ``IOError``;
    host s and bytes. No kernel of this repo runs here: ``repro``
    computes all of it outside ``pl.pallas_call``.
+12. The serving path (``repro_torch.models``, ``launch.serve``), prefill
+   attention on the hand-written kernel. 12a: every config at
+   ``.smoke()`` (f32), B 2, a 16-token prefill and two decode steps, on
+   CUDA (the kernel route: the f32 kernel once an attention call of the
+   forward and the prefill, none a decode step) against the CPU on the
+   same weights (``SERVE_TOL``), and prefill / decode consistent with
+   the forward (``tests/test_models_smoke.py``'s property). 12b:
+   granite-8b at full width and depth (36 layers, 8,254,689,280 f32
+   parameters from a seeded CUDA generator) serving B 4 x 512 prompt
+   tokens -> 16 greedy tokens through ``launch.serve.generate``, twice
+   (cold, warm): init s, prefill s, decode ms/step, tok/s, peak device
+   memory, the bf16 kernel's launches (36 in the served run: one a
+   prefill layer, none a decode step). The kernel on every layer's own
+   q, k, v of a served prefill against an f64 oracle: no more entries
+   over phase 7's bf16 tolerance than its plain version (whose f32
+   scores, several hundred here, break it too where two keys nearly
+   tie), fewer than the "P in bf16" control (SDPA logged). The
+   last-position logits of the kernel route and of the plain route
+   (``impl="scan"``, bf16) against an f32 oracle (the same weights,
+   ``dtype="float32"``, scan, TF32 off), as max |difference| / max
+   |logit|: the kernel route no further than the plain one, and two
+   faulty controls (causal off; query head h reading KV head h % KV)
+   further than the kernel route. A prefill and a decode step under
+   ``torch.profiler`` (device busy, attention's share); the kernel at
+   the model's shape (B 4, H 32, KV 8, S 512, D 128, causal) beside
+   SDPA, its plain version and its bound. The twin: the served weights'
+   first 2 layers (full width), f32, scan, B 1 x 128, CUDA against the
+   CPU within 1e-4 of max |logit|, each beside an f64 run; the same
+   depth drawn afresh at n_layers = 2 (std scale / sqrt(2)) is logged.
 
 Programs outlive runs (``repro_torch.core.graphs``): a second run of a
 shape captures nothing. Every ``Measured`` run (phases 5, 5w, 5s, 5m, 8b,
@@ -292,6 +321,7 @@ result when there is no CUDA card or when the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3904,6 +3934,482 @@ def crosspod_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 12
+# phase 12, the serving path. 12a: every config at .smoke() (f32, two
+# layers), SERVE_SMOKE = (batch, prompt tokens), two decode steps after
+# it, CUDA on the kernel route against the CPU on the same weights (MoE
+# at capacity 8, as tests/test_models_smoke.py, so that nothing drops).
+# 12b: granite-8b at full width and depth, SERVE_SHAPE = (batch, prompt
+# tokens, tokens generated), through launch.serve.generate; its CPU twin
+# at full width cut to SERVE_TWIN = (layers, batch, tokens)
+SERVE_ARCH = "granite-8b"
+SERVE_SEED = 24
+SERVE_SMOKE = (2, 16)
+SERVE_SHAPE = (4, 512, 16)
+SERVE_TWIN = (2, 1, 128)
+# CUDA against the CPU, max |difference| over max |CPU value|: 1e-4, and
+# 1e-3 for whisper-small, whose f32 smoke encoder is ill-conditioned (the
+# CPU tests hold the port to the JAX package at the same limits); the
+# twin 1e-4 of max |logit|; prefill / decode consistency at the JAX
+# test's atol = rtol = 2e-2
+SERVE_TOL = {"whisper-small": 1e-3}
+SERVE_DEFAULT_TOL = 1e-4
+SERVE_TWIN_TOL = 1e-4
+SERVE_CONSISTENCY = 2e-2
+# the faulty attention of 12b's controls: each must read further from
+# the f32 oracle than the kernel route does
+SERVE_CONTROLS = ("causal off", "kv head h % KV")
+
+
+def attention_calls(cfg) -> int:
+    """Attention calls in one prefill (the encoder's included): one a
+    block, two a decoder block (self and cross), none an RWKV block."""
+    from repro_torch.models.model import encoder_plan, layer_plan
+    per = {"rwkv": 0, "dec": 2}
+    return sum(s.count * per.get(s.kind, 1)
+               for s in layer_plan(cfg) + encoder_plan(cfg))
+
+
+def _zero_attention_counts():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    fa.launches = fa.launches_sm90 = fa.launches_f32 = 0
+
+
+def _attention_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    return {"all": fa.launches, "sm90": fa.launches_sm90,
+            "f32": fa.launches_f32}
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def _served(params, cfg, tokens, memory, impl=None) -> dict:
+    """The forward over every token, prefill over all but the last two
+    (caches for two more; rings of the window when every layer has one)
+    and two decode steps: {"full", "last", "caches" (leaves), "steps"}."""
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    from repro_torch.tree_util import tree_leaves
+    s = tokens.shape[1] - 2
+    rings = all(blocks.window_for(cfg, g.kind) for g in M.layer_plan(cfg))
+    mem = (M.encode(params, cfg, memory, impl=impl)
+           if cfg.family == "encdec" else memory)
+    full, _ = M.forward(params, cfg, tokens, memory=mem, impl=impl)
+    last, caches = M.prefill(params, cfg, tokens[:, :s], memory=memory,
+                             impl=impl, cache_len=None if rings else s + 2)
+    out = {"full": full, "last": last, "caches": tree_leaves(caches),
+           "steps": []}
+    for i in range(2):
+        logits, caches = M.decode_step(params, cfg, caches,
+                                       tokens[:, s + i:s + i + 1], s + i)
+        out["steps"].append(logits)
+    return out
+
+
+def serve_smoke_phase(dev) -> int:
+    """12a. Returns the f32 attention kernel's launches on CUDA."""
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.models import model as M
+    from repro_torch.tree_util import tree_map
+
+    b, s = SERVE_SMOKE
+    launched = 0
+    for i, arch in enumerate(list_configs()):
+        cfg = get_config(arch).smoke()
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        params = M.init_model(cfg, SERVE_SEED + i, device="cpu")
+        rng = np.random.default_rng(SERVE_SEED + i)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (b, s + 2)).astype(np.int32))
+        memory = None
+        if cfg.family in ("encdec", "vlm"):
+            n = cfg.encoder_seq if cfg.family == "encdec" else cfg.vision_seq
+            memory = torch.from_numpy(rng.standard_normal(
+                (b, n, cfg.d_model)).astype(np.float32))
+        cpu = _served(params, cfg, tokens, memory)
+
+        def cuda(x):
+            return None if x is None else x.to(dev)
+
+        _zero_attention_counts()
+        gpu = _served(tree_map(cuda, params), cfg, cuda(tokens),
+                      cuda(memory))
+        torch.cuda.synchronize()
+        counts = _attention_counts()
+        want = 2 * attention_calls(cfg)        # the forward and prefill
+        if counts != {"all": want, "sm90": 0, "f32": want}:
+            raise AssertionError(f"serve 12a {arch}: attention launches "
+                                 f"{counts}, expected {want} on the f32 "
+                                 f"kernel (once an attention call of the "
+                                 f"forward and the prefill, none a decode "
+                                 f"step)")
+        launched += counts["f32"]
+        errs = {"forward": _rel_err(gpu["full"], cpu["full"]),
+                "prefill": _rel_err(gpu["last"], cpu["last"]),
+                "caches": max((_rel_err(g, c) for g, c in
+                               zip(gpu["caches"], cpu["caches"])),
+                              default=0.0),
+                "decode": max(_rel_err(g, c) for g, c in
+                              zip(gpu["steps"], cpu["steps"]))}
+        tol = SERVE_TOL.get(arch, SERVE_DEFAULT_TOL)
+        full = gpu["full"].float().cpu()
+        gaps = [(gpu["last"][:, 0], full[:, s - 1])] + [
+            (st[:, 0], full[:, s + j]) for j, st in enumerate(gpu["steps"])]
+        consistent = all(torch.allclose(a.float().cpu(), w,
+                                        atol=SERVE_CONSISTENCY,
+                                        rtol=SERVE_CONSISTENCY)
+                         for a, w in gaps)
+        log(f"[serve 12a] {cfg.name} ({cfg.family}): CUDA vs CPU "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (limit {tol:g} of max |CPU|); {counts['f32']} f32 "
+            f"attention launches; prefill / decode consistent with the "
+            f"forward within {SERVE_CONSISTENCY:g}: {consistent}")
+        if max(errs.values()) > tol or not consistent:
+            raise AssertionError(f"serve 12a {cfg.name}: CUDA != CPU "
+                                 f"({errs}) or prefill / decode "
+                                 f"inconsistent ({consistent})")
+    return launched
+
+
+@contextlib.contextmanager
+def model_attention(wrap):
+    """The model's attention (``models.blocks.attention``) replaced by
+    ``wrap(real attention)`` inside the block."""
+    from repro_torch.models import blocks
+    real = blocks.attention
+    blocks.attention = wrap(real)
+    try:
+        yield
+    finally:
+        blocks.attention = real
+
+
+def faulty(fault: str):
+    """A wrapper with one fault: "causal off" drops the causal mask; "kv
+    head h % KV" lets query head h read KV head h % KV in place of
+    h // (H/KV)."""
+    def wrap(real):
+        def wrong(q, k, v, *, causal=True, **kw):
+            if fault == "causal off":
+                causal = False
+            else:
+                heads = torch.arange(q.shape[2], device=q.device) % k.shape[2]
+                k, v = k[:, :, heads], v[:, :, heads]
+            return real(q, k, v, causal=causal, **kw)
+        return wrong
+    return wrap
+
+
+def recording(calls: list):
+    """A wrapper that keeps every call's (q, k, v, causal, window)."""
+    def wrap(real):
+        def kept(q, k, v, *, causal=True, window=0, **kw):
+            calls.append((q, k, v, causal, window))
+            return real(q, k, v, causal=causal, window=window, **kw)
+        return kept
+    return wrap
+
+
+def device_profile(label: str, fn) -> str:
+    """``fn()`` once under torch.profiler: its kernels' device time against
+    its wall (busy share), and the attention kernel's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total <= 0:
+        return f"{label}: device time not measured (no kernels seen)"
+    attn = [e for e in kernels if "flash_attention" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[serve 12b] {label}: {e.self_device_time_total / 1e3:9.3f} ms"
+            f" {e.count:5d} launches  {e.key[:80]}")
+    launches = sum(e.count for e in kernels)
+    return (f"{label}: {total:.3f} ms of kernels ({launches} launches) in "
+            f"{wall * 1e3:.3f} ms under the profiler "
+            f"({total / wall / 1e3:.1%} busy); attention "
+            f"{sum(e.count for e in attn)} launches, {attn_ms:.3f} ms, "
+            f"{attn_ms / total:.2%} of the kernel time")
+
+
+def check_model_attention(calls) -> None:
+    """The bf16 kernel on every attention call of a served prefill, its
+    own q, k, v, against an f64 oracle (``mha_reference`` on the inputs
+    in f64) beside its plain version (``mha_reference``: f32 scores,
+    output in bf16), the "P in bf16" control and SDPA: entries
+    over phase 7's bf16 tolerance, summed over the calls. The kernel must
+    have no more than its plain version, and the "P in bf16" control more
+    than the kernel. (Scores reach several hundred here, so rows whose
+    two best keys nearly tie turn an f32 score's rounding into more than
+    that tolerance: the plain version, held to the f64 oracle, breaks it
+    too.)"""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mha_reference
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    names = ("kernel", "plain version", "control: P in bf16", "SDPA")
+    over = dict.fromkeys(names, 0)
+    worst = dict.fromkeys(names, 0.0)
+    for q, k, v, causal, window in calls:
+        q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        want = mha_reference(q.double(), k.double(), v.double(),
+                             causal=causal, window=window)
+        outs = {"kernel": ops.flash_attention(q, k, v, causal=causal,
+                                              window=window),
+                "plain version": mha_reference(q, k, v, causal=causal,
+                                               window=window),
+                "control: P in bf16": attention_control(q, k, v, window,
+                                                        "P in bf16")}
+        if causal and not window:
+            outs["SDPA"] = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        for name, got in outs.items():
+            diff = (got.double() - want).abs()
+            over[name] += int((diff > atol + rtol * want.abs()).sum())
+            worst[name] = max(worst[name], float(diff.max()))
+        del want, outs
+    log(f"[serve 12b] attention on the served prefill's own q, k, v "
+        f"({len(calls)} calls, q {tuple(calls[0][0].shape)} each) against "
+        f"an f64 oracle, entries over atol {atol:g} rtol {rtol:g} (max "
+        f"|err|): " + ", ".join(f"{n} {over[n]} ({worst[n]:.3e})"
+                                for n in names))
+    if over["kernel"] > over["plain version"] or not (
+            over["control: P in bf16"] > over["kernel"]):
+        raise AssertionError(f"serve 12b: on the model's inputs the kernel "
+                             f"must read no further from the f64 oracle "
+                             f"than its plain version, and the control "
+                             f"further: {over}")
+
+
+def _model_shape_attention(cfg, dev) -> dict:
+    """The bf16 kernel at the model's prefill shape, beside its plain
+    version, SDPA and its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mha_reference
+    b, plen, _ = SERVE_SHAPE
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    shape = (b, h, kv, plen, plen, cfg.resolved_head_dim)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    sets = input_sets(attn_inputs(shape, torch.bfloat16, gen),
+                      lambda: attn_inputs(shape, torch.bfloat16, gen))
+    k_t = graph_ms(lambda q, k, v: ops.flash_attention(q, k, v,
+                                                       causal=True), sets)
+    p_t = graph_ms(lambda q, k, v: mha_reference(q, k, v, causal=True),
+                   sets, len(sets), replays=1, windows=3)
+    sdpa, expand = sdpa_fn(plen, plen, 0, h // kv)
+    l_t = graph_ms(sdpa, [(q, expand(k), expand(v)) for q, k, v in sets])
+    bnd = attn_bound(shape, torch.bfloat16, 0)
+    ms = median(k_t)
+    log(f"[serve 12b] flash_attention at the model's prefill shape "
+        f"(B,H,KV,Sq,Skv,D)={shape} bf16 causal: {ms * 1e3:.2f} us/call "
+        f"median of {len(k_t)} windows (min {k_t[0] * 1e3:.2f}, max "
+        f"{k_t[-1] * 1e3:.2f}); SDPA {median(l_t) * 1e3:.2f} us; plain "
+        f"torch {median(p_t) * 1e3:.2f} us; bound {bnd['bound_ms'] * 1e3:.2f}"
+        f" us by {bnd['bound_by']} ({bnd['flops'] / 1e9:.2f} GFLOP, "
+        f"{bnd['moved'] / 1e6:.1f} MB), {bnd['bound_ms'] / ms:.1%} of it; "
+        f"{len(sets)} input sets")
+    del sets
+    return dict(model_ms=ms, model_library_ms=median(l_t),
+                model_plain_ms=median(p_t), model_bound_ms=bnd["bound_ms"])
+
+
+def _twin(cfg, params, toks, what: str) -> float:
+    """The forward on CUDA and on the CPU (f32, scan) on the same weights,
+    each beside an f64 run on CUDA; returns max |CUDA - CPU| / max
+    |logit|."""
+    from repro_torch.models import model as M
+    from repro_torch.tree_util import tree_map
+    dev = next(iter(params["embed"].values())).device
+    t0 = time.perf_counter()
+    gpu = M.forward(params, cfg, toks.to(dev), impl="scan")[0].cpu()
+    t1 = time.perf_counter()
+    f64 = M.forward(tree_map(lambda a: a.double(), params),
+                    dataclasses.replace(cfg, dtype="float64"), toks.to(dev),
+                    impl="scan")[0].cpu()
+    t2 = time.perf_counter()
+    cpu = M.forward(tree_map(lambda a: a.cpu(), params), cfg, toks,
+                    impl="scan")[0]
+    t3 = time.perf_counter()
+    err = _rel_err(gpu, cpu)
+    log(f"[serve 12b] twin ({what}): {cfg.name} at full width, "
+        f"{cfg.n_layers} layers, f32, impl scan, B {toks.shape[0]} x "
+        f"{toks.shape[1]}: CUDA vs CPU max |difference| / max |logit| "
+        f"{err:.3e} (limit {SERVE_TWIN_TOL:g}); against f64: CUDA "
+        f"{_rel_err(gpu, f64):.3e}, CPU {_rel_err(cpu, f64):.3e}; max "
+        f"|logit| {float(cpu.abs().max()):.4f}; CUDA {t1 - t0:.3f} s, f64 "
+        f"{t2 - t1:.3f} s, CPU with the copy {t3 - t2:.3f} s")
+    return err
+
+
+def serve_full_phase(dev) -> dict:
+    """12b. Returns the bf16 attention kernel's launches in the served
+    run and its numbers at the model's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.tree_util import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(SERVE_ARCH)
+    b, plen, n_gen = SERVE_SHAPE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(SERVE_SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = count_params(M.model_defs(cfg))
+    log(f"[serve 12b] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv, head "
+        f"{cfg.resolved_head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+        f"{n:,} parameters in {cfg.param_dtype} "
+        f"({torch.cuda.memory_allocated() - held:,} bytes on the card), "
+        f"compute {cfg.dtype}; init {init_s:.3f} s (seeded CUDA "
+        f"generator); {held:,} bytes held before")
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=plen, global_batch=b,
+                           seed=3)
+    prompts = torch.from_numpy(data.batch_at(0)["tokens"]).to(dev)
+    layers = attention_calls(cfg)
+
+    # the main path: counts zeroed just before, read just after
+    _zero_attention_counts()
+    out = serve.generate(params, cfg, prompts, n_gen)
+    counts = _attention_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts != {"all": layers, "sm90": layers, "f32": 0}:
+        raise AssertionError(f"serve 12b: attention launches {counts} in "
+                             f"the served run, expected {layers} on the "
+                             f"bf16 kernel (one a layer of the prefill, "
+                             f"none a decode step)")
+    if out.tokens.shape != (b, n_gen + 1) or not (
+            (out.tokens >= 0) & (out.tokens < cfg.vocab)).all():
+        raise AssertionError(f"serve 12b: tokens {out.tokens.shape} out of "
+                             f"shape or range")
+    log(f"[serve 12b] served B {b} x {plen} -> {n_gen} tokens (cold): "
+        f"prefill {out.prefill_s:.4f} s, decode {out.steady_s * 1e3:.3f} "
+        f"ms/step (steps 2-{n_gen}; first {out.step_s[0] * 1e3:.3f} ms), "
+        f"{b / out.steady_s:.1f} tok/s aggregate; peak device memory "
+        f"{peak:,} bytes ({peak / 2**30:.2f} GiB); flash_attention "
+        f"launches {counts['sm90']} in the run ({layers} layers: "
+        f"{counts['sm90'] / layers:g} a prefill layer, 0 a decode step)")
+    warm = serve.generate(params, cfg, prompts, n_gen)
+    if not np.array_equal(warm.tokens, out.tokens):
+        raise AssertionError("serve 12b: a second run gave other tokens")
+    log(f"[serve 12b] again (warm): prefill {warm.prefill_s:.4f} s, decode "
+        f"{warm.steady_s * 1e3:.3f} ms/step, {b / warm.steady_s:.1f} tok/s "
+        f"aggregate; the same tokens")
+
+    def last_logits(c, impl=None):
+        return M.prefill(params, c, prompts, impl=impl)[0][:, -1].float()
+
+    calls = []
+    _zero_attention_counts()
+    with model_attention(recording(calls)):
+        kern = last_logits(cfg)
+    torch.cuda.synchronize()
+    if _attention_counts()["sm90"] != layers or len(calls) != layers:
+        raise AssertionError("serve 12b: the kernel-route prefill did not "
+                             "launch the kernel once a layer")
+    check_model_attention(calls)
+    del calls
+    plain = last_logits(cfg, "scan")
+    oracle = last_logits(dataclasses.replace(cfg, dtype="float32"), "scan")
+
+    def err(x):
+        return float((x - oracle).abs().max() / oracle.abs().max())
+
+    errs = {"kernel route": err(kern), "plain route (scan, bf16)":
+            err(plain)}
+    for fault in SERVE_CONTROLS:
+        with model_attention(faulty(fault)):
+            errs[f"control: {fault}"] = err(last_logits(cfg))
+    log(f"[serve 12b] last-position logits against the f32 oracle (the "
+        f"same weights, dtype float32, impl scan, TF32 off; max |logit| "
+        f"{float(oracle.abs().max()):.4f}), max |difference| / max "
+        f"|logit|: " + ", ".join(f"{k} {v:.4e}" for k, v in errs.items())
+        + f"; argmax agreement with the oracle: kernel "
+        f"{int((kern.argmax(-1) == oracle.argmax(-1)).sum())}/{b}, plain "
+        f"{int((plain.argmax(-1) == oracle.argmax(-1)).sum())}/{b}")
+    k_err = errs["kernel route"]
+    if k_err > errs["plain route (scan, bf16)"] or not all(
+            errs[f"control: {f}"] > k_err for f in SERVE_CONTROLS):
+        raise AssertionError(f"serve 12b: the kernel route must read no "
+                             f"further from the f32 oracle than the plain "
+                             f"route, and every control further: {errs}")
+    del kern, plain, oracle
+    log("[serve 12b] " + device_profile(
+        "prefill", lambda: M.prefill(params, cfg, prompts,
+                                     cache_len=plen + n_gen)))
+    _, caches = M.prefill(params, cfg, prompts, cache_len=plen + n_gen)
+    tok = prompts[:, -1:]
+    log("[serve 12b] " + device_profile(
+        "decode step", lambda: M.decode_step(params, cfg, caches, tok,
+                                             plen)))
+    twin_p = tree_map(lambda a: a[:SERVE_TWIN[0]].clone(),
+                      params["segments"][0])
+    twin_p = {"embed": params["embed"], "segments": [twin_p]}
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = _model_shape_attention(cfg, dev)
+
+    # the twin: the served weights' first layers (full width, SERVE_TWIN's
+    # depth), f32, plain, CUDA vs CPU; then the same depth drawn afresh
+    # at n_layers = 2, whose stacked leaves' std is scale / sqrt(2)
+    layers2, b2, s2 = SERVE_TWIN
+    cfg2 = dataclasses.replace(cfg, n_layers=layers2, dtype="float32")
+    toks = torch.from_numpy(SyntheticTokens(
+        vocab=cfg.vocab, seq_len=s2, global_batch=b2,
+        seed=3).batch_at(0)["tokens"])
+    twin = _twin(cfg2, twin_p, toks, "the served weights' first layers")
+    del twin_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    drawn = M.init_model(
+        cfg2, torch.Generator(device=dev).manual_seed(SERVE_SEED + 1), dev)
+    _twin(cfg2, drawn, toks, "drawn afresh at n_layers = 2 (std scale / "
+          "sqrt(2)), logged, not held to the limit")
+    del drawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not twin <= SERVE_TWIN_TOL:
+        raise AssertionError(f"serve 12b twin: CUDA != CPU ({twin:.3e})")
+    return dict(model=row, launches=counts["sm90"])
+
+
+def serve_phase(dev) -> dict:
+    """Phase 12: returns the attention launches of its runs by kernel and
+    the bf16 kernel's numbers at the model's shape."""
+    t0 = time.perf_counter()
+    f32 = serve_smoke_phase(dev)
+    log(f"[time] 12a serving, every family {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    full = serve_full_phase(dev)
+    log(f"[time] 12b serving {SERVE_ARCH} {time.perf_counter() - t0:.1f} s")
+    return dict(full, launches_f32=f32)
+
+
 def build_all() -> dict:
     """Phase 2: every source, one nvcc each, all started together. Returns
     {source name: library path}."""
@@ -4077,19 +4583,29 @@ def main() -> int:
     t0 = time.perf_counter()
     crosspod_phase(dev)
     log(f"[time] cross-pod phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served = serve_phase(dev)
+    log(f"[time] serving phase {time.perf_counter() - t0:.1f} s")
 
     # the main path's launches: the full-size runs, dense and windowed,
     # the sweep, the same runs with metrics on, the full-width topologies
     # and applications, the recorded, replayed and forked runs, and the
-    # streaming sessions with their batch run
+    # streaming sessions with their batch run; the attention kernels',
+    # phase 7's path and phase 12's served runs (bf16: 12b's, f32: 12a's)
     main = [launches, w_launches, s_launches, m_launches, t_launches,
             r_launches, f_launches, sp_launches, sf_launches]
     rows = [("quack_scan", dict(kern[True], launches=sum(
                  x[0] for x in main), library_ms=None)),
             ("quack_scan_no_lost", dict(kern[False], launches=sum(
                 x[1] for x in main), library_ms=None)),
-            ("flash_attention", api["flash_attention"]),
-            ("flash_attention_f32", api["flash_attention_f32"]),
+            ("flash_attention", dict(
+                api["flash_attention"], **served["model"],
+                launches=api["flash_attention"]["launches"]
+                + served["launches"])),
+            ("flash_attention_f32", dict(
+                api["flash_attention_f32"],
+                launches=api["flash_attention_f32"]["launches"]
+                + served["launches_f32"])),
             ("rwkv6_chunked", api["rwkv6_chunked"])]
     entries = []
     for name, k in rows:
@@ -4101,7 +4617,7 @@ def main() -> int:
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"],
             **{key: k[key] for key in k if key.startswith(
-                ("windowed_", "lanes", "floor_"))}))
+                ("windowed_", "lanes", "floor_", "model_"))}))
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError("a kernel of the main path never launched")
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")

@@ -10,7 +10,9 @@ names (``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.obs``,
 ``repro_torch.launch`` (the mesh held on one card, elastic replanning),
 ``repro_torch.optim``, ``repro_torch.data``, ``repro_torch.checkpoint``,
 ``repro_torch.configs``, on trees of tensors from
-``repro_torch.tree_util``) and imports nothing of ``repro`` or JAX.
+``repro_torch.tree_util``; the serving path of the model zoo,
+``repro_torch.models`` with ``repro_torch.launch.serve``) and imports
+nothing of ``repro`` or JAX.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 

@@ -74,17 +74,22 @@ def _mask(s, *, causal: bool, window: int):
     return s.masked_fill(~ok, MASK_VALUE)
 
 
+def _acc(x) -> torch.dtype:
+    """The attention oracle's arithmetic: f32, or f64 for f64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _grouped(q, k):
-    """q as (B,KV,H/KV,Sq,D) f32, beside k's (B,KV,Skv,D)."""
+    """q as (B,KV,H/KV,Sq,D) in ``_acc``, beside k's (B,KV,Skv,D)."""
     b, h, sq, d = q.shape
     n_kv = k.shape[1]
-    return q.reshape(b, n_kv, h // n_kv, sq, d).to(torch.float32)
+    return q.reshape(b, n_kv, h // n_kv, sq, d).to(_acc(q))
 
 
 def _scores(q, k, *, causal: bool, window: int):
-    """(B,KV,H/KV,Sq,Skv) f32 scores of ``mha_reference``, masked with
-    -1e30."""
-    s = torch.einsum("bkgqd,bksd->bkgqs", _grouped(q, k), k.to(torch.float32))
+    """(B,KV,H/KV,Sq,Skv) scores of ``mha_reference`` in ``_acc``, masked
+    with -1e30."""
+    s = torch.einsum("bkgqd,bksd->bkgqs", _grouped(q, k), k.to(_acc(q)))
     return _mask(s / math.sqrt(q.shape[-1]), causal=causal, window=window)
 
 
@@ -95,11 +100,12 @@ def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
     Returns (B,H,Sq,D) in q's dtype. Query i sits at position Skv - Sq + i
     (aligned to the end, as in a prefill after a cache); key j is masked
     with -1e30 when ``causal`` and j > position, or when ``window > 0`` and
-    j <= position - window. Scores and softmax are f32, so a row whose
-    keys are all masked gets the uniform mean of v.
+    j <= position - window. Scores and softmax are f32 (f64 for f64
+    inputs), so a row whose keys are all masked gets the uniform mean of
+    v.
     """
     p = torch.softmax(_scores(q, k, causal=causal, window=window), dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(_acc(q)))
     return o.reshape(q.shape).to(q.dtype)
 
 

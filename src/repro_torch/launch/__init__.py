@@ -1,1 +1,2 @@
-"""Launch substrate: the mesh held on one card, and elastic replanning."""
+"""Launch substrate: the mesh held on one card, elastic replanning, and
+the serving launcher (``launch.serve``)."""

@@ -32,11 +32,12 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..models.params import resolve_device
 from ..tree_util import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["Mesh", "PartitionSpec", "P", "make_production_mesh",
-           "make_mesh", "small_mesh", "to_blocks", "from_blocks", "psum",
-           "psum_scatter", "all_gather", "shard_map"]
+           "make_mesh", "small_mesh", "parse_mesh", "to_blocks",
+           "from_blocks", "psum", "psum_scatter", "all_gather", "shard_map"]
 
 
 class PartitionSpec(tuple):
@@ -76,20 +77,7 @@ class Mesh:
         self.axis_names: Tuple[str, ...] = axes
         self.shape: Dict[str, int] = dict(zip(axes, shape))
         self.size = int(np.prod(shape))
-        self.device = _resolve_device(device)
-
-
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the mesh is held on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to hold it on the CPU")
-        device = "cuda"
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+        self.device = resolve_device(device, "the mesh is held")
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
@@ -101,6 +89,15 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
               device=None) -> Mesh:
     return Mesh(shape, axes, device)
+
+
+def parse_mesh(s: str, device=None) -> Mesh:
+    """A launcher's ``--mesh``: ``"DxM"`` as (data, model), ``"PxDxM"``
+    as (pod, data, model)."""
+    dims = [int(x) for x in s.split("x")]
+    if len(dims) == 3:
+        return make_mesh(dims, ("pod", "data", "model"), device)
+    return make_mesh(dims, ("data", "model"), device)
 
 
 def small_mesh(data: int = 2, model: int = 2, pod: Optional[int] = None,

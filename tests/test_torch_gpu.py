@@ -1410,3 +1410,94 @@ def test_crosspod_checkpoint_round_trip_from_cuda(tmp_path):
     assert step == 5
     for a, b in zip(tree_leaves(out), tree_leaves(want)):
         assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# the serving path: smoke configs of each family (dense, SWA MoE,
+# RWKV6, hybrid, encoder-decoder, VLM)
+SERVE_ARCHS = ["granite-8b", "mixtral-8x22b", "rwkv6-7b", "hymba-1.5b",
+               "whisper-small", "llama-3.2-vision-11b"]
+
+
+def _served_model(arch, dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype)
+    params = M.init_model(cfg, 5, device="cpu")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 18)).astype(
+        np.int32))
+    memory = None
+    if cfg.family in ("encdec", "vlm"):
+        n = cfg.encoder_seq if cfg.family == "encdec" else cfg.vision_seq
+        memory = torch.from_numpy(rng.standard_normal(
+            (2, n, cfg.d_model)).astype(np.float32))
+    return cfg, params, tokens, memory
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_model_prefill_launches_the_kernel_once_a_layer(dtype):
+    """The default route on CUDA: the dtype's attention kernel once per
+    attention layer of a prefill, never in a decode step."""
+    _need_cuda()
+    from repro_torch.models import model as M
+    from repro_torch.tree_util import tree_map
+    cfg, params, tokens, _ = _served_model("granite-8b", dtype)
+    params = tree_map(lambda a: a.cuda(), params)
+    tokens = tokens.cuda()
+    fa = cuda_flash_attention
+    fa.launches = fa.launches_sm90 = fa.launches_f32 = 0
+    _, caches = M.prefill(params, cfg, tokens[:, :16], cache_len=18)
+    torch.cuda.synchronize()
+    route = (fa.launches_sm90 if dtype == "bfloat16" else fa.launches_f32)
+    assert fa.launches == route == cfg.n_layers
+    M.decode_step(params, cfg, caches, tokens[:, 16:17], 16)
+    torch.cuda.synchronize()
+    assert fa.launches == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_smoke_model_on_cuda_equals_its_cpu_twin(arch):
+    """Forward, prefill (last logits, caches) and two decode steps on CUDA
+    (prefill attention on the f32 kernel) against the CPU on the same
+    weights, within 1e-4 of each output's largest entry (whisper-small
+    1e-3: its smoke encoder is ill-conditioned)."""
+    _need_cuda()
+    from repro_torch.models import model as M
+    from repro_torch.tree_util import tree_leaves, tree_map
+    cfg, params, tokens, memory = _served_model(arch)
+    tol = 1e-3 if arch == "whisper-small" else 1e-4
+
+    def run(p, toks, mem):
+        fwd_mem = (M.encode(p, cfg, mem) if cfg.family == "encdec"
+                   else mem)
+        rings = cfg.family == "moe" and cfg.sliding_window > 0
+        out = [M.forward(p, cfg, toks, memory=fwd_mem)[0]]
+        last, caches = M.prefill(p, cfg, toks[:, :16], memory=mem,
+                                 cache_len=None if rings else 18)
+        out += [last] + tree_leaves(caches)
+        for i in range(2):
+            logits, caches = M.decode_step(p, cfg, caches,
+                                           toks[:, 16 + i:17 + i], 16 + i)
+            out.append(logits)
+        return out
+
+    want = run(params, tokens, memory)
+    got = run(tree_map(lambda a: a.cuda(), params), tokens.cuda(),
+              None if memory is None else memory.cuda())
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        err = (g.cpu() - w).abs().max() / w.abs().max().clamp(min=1e-30)
+        assert err <= tol
+
+
+def test_model_kernel_route_refuses_autograd_on_cuda():
+    _need_cuda()
+    from repro_torch.models.attention import attention
+    q = torch.randn(1, 128, 4, 64, device="cuda", requires_grad=True)
+    k = torch.randn(1, 128, 2, 64, device="cuda")
+    with pytest.raises(RuntimeError, match="impl='scan'"):
+        attention(q, k, k)
+    attention(q, k, k, impl="scan").sum().backward()
+    assert q.grad is not None
