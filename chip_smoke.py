@@ -61,9 +61,10 @@ Phases, each of which raises on failure (exit code non-zero):
    those of the metrics-off run.
 5. Full-size phase: BFT f = 6 <-> f = 6 (n = 19, the paper's largest
    §6.1 network), window 4, phi 32, failure-free at M = 65,536 over 900
-   rounds and with ``crash_fraction(19, 19, 0.3, seed=2)`` at M = 32,768
-   over 32,000 rounds (the crash cell's depth, halved to pay for phase
-   10), through ``run_picsou``. Both
+   rounds and with ``crash_fraction(19, 19, 0.3, seed=2)`` at M = 8,192
+   over 8,192 rounds (the crash cell's depth, halved to pay for phase
+   10, for phase 13 and again to keep the script inside its time on a
+   slower host), through ``run_picsou``. Both
    runs must end fully delivered and fully quacked, with 2 x steps kernel
    launches and one graph replay per 32-round block each; failure-free
    exactly one cross copy per message and no resend, the crash run some
@@ -73,7 +74,7 @@ Phases, each of which raises on failure (exit code non-zero):
    the wall, the host time of the dispatches that captured their
    program, and its peak device memory above what was allocated before.
 5w. Windowed at full width: the same link with ``window_slots="auto"``
-   (W = 6,016) and 32-round chunks. A failure-free stream of M = 1,048,576
+   (W = 6,016) and 32-round chunks. A failure-free stream of M = 524,288
    messages over ceil(M / 76) + 60 rounds, at K = 8 (the default), at
    K = 8 again with the first run's programs (the warm contract: it
    captures nothing, equals the first run bit for bit and logs both
@@ -81,12 +82,12 @@ Phases, each of which raises on failure (exit code non-zero):
    cross copy per message, no resend and the GC frontier at M, the runs
    bit for bit equal, each within the dispatch contract; its planning
    time, and per run the numbers of phase 5, are logged. The crash
-   configuration of phase 5 (M = 32,768), windowed, must give every
+   configuration of phase 5 (M = 8,192), windowed, must give every
    output and metric of phase 5's dense crash run bit for bit; its growth events and frontier
    trajectory are logged. Each run must launch the kernel 2 x steps
    times plus once per rotating chunk.
 5s. The full-width sweep: ``run_picsou_batch`` of the same link at
-   M = 262,144 over 3,510 rounds, W = 6,016, K = 8, with four lanes:
+   M = 131,072 over 1,785 rounds, W = 6,016, K = 8, with four lanes:
    failure-free, and receivers 0-5 acking ``byz_ack_low``,
    ``byz_ack_stale`` and ``byz_ack_advance`` of +1 (6 < 7 = quack_thresh
    stake, inside the quorum budget). Every lane must end all delivered
@@ -108,11 +109,11 @@ Phases, each of which raises on failure (exit code non-zero):
    overlap ratio.
 6. Where a graphed round's time goes: torch.profiler over a window of
    replays (started and stopped at chosen dispatches, after every
-   capture) of the dense crash configuration (M = 32,768), of the
+   capture) of the dense crash configuration (M = 8,192), of the
    failure-free windowed link at K = 8 (W = 6,016, and W = 65,536 on a
    131,072-message stream, wide enough for the launch-ahead path) and of
    the windowed crash configuration past its dense migration (W = M =
-   32,768): kernels and kernel time per round, device busy
+   8,192): kernels and kernel time per round, device busy
    share against the same window unprofiled and against the engine's
    full run, the host time of each replay, drain start and drain wait,
    and the replays launched ahead of an earlier drain. Then the cost of a chunk boundary: the failure-free link at
@@ -176,14 +177,14 @@ Phases, each of which raises on failure (exit code non-zero):
    change what it dispatches; both applications on the JAX tests'
    fixtures, CUDA == CPU == ``use_reference=True`` in every report
    field. 8b at full width (BFT f = 6, window 4, phi 32, W = 6,016,
-   32-round chunks): a chain a-b-c-d at M = 262,144 (every link all
+   32-round chunks): a chain a-b-c-d at M = 131,072 (every link all
    delivered and quacked, each chained link's floors its upstream's
    frontiers and nothing sent before its upstream retired it, the first
    link == ``run_picsou`` of it; beside it the same links as a plain
    ``run_picsou_batch`` at K = 1, the difference being the floor
    boundary's cost); disaster recovery from a primary to three backups
-   over 3,510 rounds (backup-1 loses 7 > f receivers at round 1,755,
-   backup-2's receivers 0-5 drop, the primary crashes at round 3,300):
+   over 1,785 rounds (backup-1 loses 7 > f receivers at round 892,
+   backup-2's receivers 0-5 drop, the primary crashes at round 1,575):
    phase 1 == ``run_picsou_batch`` of the three link scenarios bit for
    bit, the elected backup holds the longest prefix, the report
    converges; reconciliation of three clusters (six links) holding
@@ -209,7 +210,7 @@ Phases, each of which raises on failure (exit code non-zero):
    it computes; disaster recovery with the crash injected by replay on
    the JAX tests' fixtures == the static report; every adversary kind on
    dense, windowed K = 1 and K = 8 == the oracle, retirement safe. 9b at
-   full width: phase 5s's lane 0 (M = 262,144, 3,510 rounds, W = 6,016)
+   full width: phase 5s's lane 0 (M = 131,072, 1,785 rounds, W = 6,016)
    recorded every 8 chunks, each checkpoint's host s and bytes from its
    ``checkpoint`` span; a replay from the middle checkpoint == the
    original with 0 captures; ``crash_fraction(19, 19, 0.3, seed=2)``
@@ -265,7 +266,7 @@ Phases, each of which raises on failure (exit code non-zero):
    smallest leaves, all within 1e-6, outputs on the card; device ms a
    sync for each schedule (CUDA events, median of 5), peak device
    memory, ``dcn_bytes_analytic``'s bytes. 11b: EF-int8 over the layer
-   for 20 steps, q and scales (and the residuals) bit for bit against
+   for 10 steps, q and scales (and the residuals) bit for bit against
    the CPU in every step, accumulated sent + residual == true within
    1e-4; ms a compress + decompress. 11c: three clipped AdamW steps
    with ``cosine_schedule`` against the CPU within 1e-6 of each leaf's
@@ -304,6 +305,47 @@ Phases, each of which raises on failure (exit code non-zero):
    first 2 layers (full width), f32, scan, B 1 x 128, CUDA against the
    CPU within 1e-4 of max |logit|, each beside an f64 run; the same
    depth drawn afresh at n_layers = 2 (std scale / sqrt(2)) is logged.
+13. The training path (``repro_torch.launch.train``, ``launch.steps``,
+   ``models.loss_fn``; attention's kernel route under autograd: the
+   forward on the kernel, the backward the plain scan's gradient,
+   recomputed one query block at a time). 13a: every config at
+   ``.smoke()`` (f32, remat on), B 2 x 18 tokens: ``value_and_grad`` and
+   two ``build_train_step`` steps (warmup 1, so that the second moves
+   the weights) on CUDA against the CPU on the same weights (loss, every
+   gradient leaf, and AdamW's m and v after the second step, each within
+   1e-4 of the leaf's max or, where larger, twice the CPU's own f32
+   distance from an f64 run of the same steps; the parameters logged),
+   the f32 kernel launched twice an attention layer of a stacked segment
+   (the forward and remat's recompute) and once elsewhere a step; on the
+   models' own q, k, v, dO (every attention call of a remat-off step)
+   the kernel route's dQ, dK, dV against the scan route's within 1e-6 of
+   each one's max (bit for bit counted), its output at most 4x as far
+   from an f64 oracle as its plain version's (three TF32 passes keep 22
+   bits; the plain version on q, k, v rounded to bf16 must break that
+   on every f32 call), and a control, a backward recomputed with the
+   causal mask off, over the limit on every causal call;
+   ``python -m repro_torch.launch.train --arch granite-8b-smoke --steps
+   6 --mesh 2x2x2 --mode ddp --sync picsou --compress --device cuda``
+   (in process) with finite losses; a restart (checkpoints every 4
+   steps, resumed after step 7 for 4 steps) within 2e-3 of an
+   uninterrupted 12-step run. 13b: granite-8b at full width, 4 of 36
+   layers (1,275,105,280 f32 parameters: 36 layers' training state, 16
+   B a parameter, would be 132 GB), sequence 4,096, global batch 4
+   (train_4k's 256 cut to one card), mesh 2x2x1, bf16 compute, remat
+   on: 4 steps each of pjit, ddp PICSOU, ddp ATA and ddp PICSOU with
+   ``--compress`` through ``launch.train.run``, each from the same
+   seeded init: 8 bf16 kernel launches a step, finite losses, PICSOU ==
+   ATA within 1e-4, pjit within 5e-2 of ddp, the compressed run within
+   5e-2 of ddp and not equal to it; per mode the cold and warm
+   step s, tokens/s, the model's product FLOPs as a share of 989
+   TFLOP/s bf16, peak device memory. One warm ddp PICSOU step under
+   ``torch.profiler``: GEMMs, the attention kernel and the ranges the
+   port marks (the plain attention backward, AdamW, the sync) as shares
+   of the kernel time, and device busy. Layer 0's own q, k, v, dO (bf16)
+   through the 13a route check; the twin (the first layer, f32, scan,
+   B 1 x 128: gradients CUDA against the CPU); the bf16 kernel at the
+   step's shape (4, 32, 8, 4,096, 4,096, 128) beside SDPA and its
+   bound. No checkpoint at full width (phase 11 times one).
 
 Programs outlive runs (``repro_torch.core.graphs``): a second run of a
 shape captures nothing. Every ``Measured`` run (phases 5, 5w, 5s, 5m, 8b,
@@ -349,22 +391,25 @@ L2_BYTES = 50e6
 SHAPE = (19, 19, 65536)          # (n_s, n_r, M) of the full-size phase
 # rounds of the full-size runs: failure-free completes at round 869. The
 # crash runs (phases 5, 5w, 5m and 6's crash windows) stream CRASH_M
-# messages: deterministic, they complete at round 31,437 (at M = 65,536,
-# the depth before this cut, at round 63,171 of 64,000)
+# messages, deterministic, over STEPS_CRASH rounds. Cut three times to keep
+# the script inside its time: at M = 65,536 they completed at round 63,171
+# of 64,000, at M = 32,768 at round 31,437 of 32,000, at M = 16,384 at
+# round 16,004 of 16,384; at M = 8,192 they complete at round 7,928
 STEPS_FREE = 900
-CRASH_M = 32768
-STEPS_CRASH = 32000
+CRASH_M = 8192
+STEPS_CRASH = 8192
 # the windowed engine at full width: default_window_slots(19, 19, 4, 32,
 # 32) = 6,016 columns, 32-round chunks; the long stream sends 76 messages
 # a round (19 senders x window 4) and ends 60 rounds after its last send
 CHUNK = 32
 WIN_SHAPE = (1, 19, 19, 6016)    # the windowed quorum launch (B, S, R, W)
 TOPO_LANES = (3, 6)    # lanes (links) of phase 8's full-width topologies
-M_LONG = 1_048_576
+M_LONG = 524_288
 STEPS_LONG = -(-M_LONG // 76) + 60
-# the full-width sweep: four lanes of the same link, M = 262,144 over
-# ceil(M / 76) + 60 = 3,510 rounds
-SWEEP_M = 262_144
+# the full-width sweep: four lanes of the same link, M = 131,072 over
+# ceil(M / 76) + 60 = 1,785 rounds (halved from 262,144 over 3,510 to keep
+# the script inside its time; phases 8b and 9b run at the same depth)
+SWEEP_M = 131_072
 SWEEP_STEPS = -(-SWEEP_M // 76) + 60
 # phase 8: the path-size topologies (BFT f = 1, M = 1,024, W = 256,
 # 16-round chunks), then at full width (BFT f = 6, the sweep's M and
@@ -373,12 +418,15 @@ SWEEP_STEPS = -(-SWEEP_M // 76) + 60
 # backup-1 losing 7 > f receivers at DR_LAG_AT; reconciliation of stores
 # of RECON_M keys over streams of RECON_M messages
 TOPO_SIM = dict(n_msgs=1024, steps=240, window_slots=256, chunk_steps=16)
-# the chain's links complete at rounds 3,456, 3,495 and 3,527 (lags of 39
-# and 32 rounds a hop; PERF.md), so 3,528 rounds (ceil(M / 76) + 60 + 18)
-# are the fewest at which the last hop completes
-CHAIN_STEPS = 3528
-DR_CRASH = 3300
-DR_LAG_AT = 1755
+# the chain's links complete at rounds 1,731, 1,767 and 1,799 (lags of 36
+# and 32 rounds a hop; at M = 262,144: 3,456, 3,495 and 3,527), so 1,800
+# rounds (ceil(M / 76) + 60 + 15) are the fewest at which the last hop
+# completes. The primary crashes 210 rounds before the stream ends (about
+# 210 x 76 messages unsent) and backup-1 loses its receivers half-way, as
+# at 262,144 (rounds 3,300 and 1,755)
+CHAIN_STEPS = SWEEP_STEPS + 15
+DR_CRASH = SWEEP_STEPS - 210
+DR_LAG_AT = SWEEP_STEPS // 2
 RECON_M = 65_536
 RECON_STEPS = -(-RECON_M // 76) + 60
 # each kernel of the JSON line: its source, and the TPU kernel it replaces
@@ -3603,7 +3651,7 @@ XP_MESH = ((2, 16, 16), ("pod", "data", "model"))
 # magnitude; EF-int8 as tests/test_crosspod.py holds it
 XP_TOL = 1e-6
 XP_EF_TOL = 1e-4
-XP_EF_STEPS = 20
+XP_EF_STEPS = 10      # 20 until its CPU twin's 34 s were cut for time
 XP_ADAMW_STEPS = 3
 XP_REPEATS = 5
 XP_SMALL = ("ln1", "ln2", "attn/wk", "attn/wv")   # the four smallest
@@ -3750,7 +3798,7 @@ def _sync_phase(dev, shapes: dict) -> None:
 
 
 def _compression_phase(dev, shapes: dict) -> None:
-    """11b: EF-int8 over the layer for 20 steps, CUDA against the port on
+    """11b: EF-int8 over the layer for XP_EF_STEPS steps, CUDA against the port on
     the CPU on the same gradients."""
     from repro_torch.crosspod import ef_int8_compress, ef_int8_decompress
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -4410,6 +4458,670 @@ def serve_phase(dev) -> dict:
     return dict(full, launches_f32=f32)
 
 
+# ------------------------------------------------------------ phase 13
+# phase 13, the training path. 13a: every config at .smoke() (f32, remat
+# on; MoE at capacity 8 so that nothing drops), TRAIN_SMOKE = (batch,
+# tokens): two build_train_step steps on CUDA (attention on the f32
+# kernel; warmup 1, so that the second step moves the weights) against
+# the CPU on the same weights; the kernel route's dQ, dK,
+# dV on the model's own q, k, v, dO against the scan route's; the
+# launcher on CUDA (ddp, PICSOU, EF-int8, a (2, 2, 2) mesh) and a
+# restart. 13b: granite-8b at full width, its depth cut to TRAIN_LAYERS
+# of 36 (the training state of 36 layers, 16 B a parameter, is 132 GB),
+# sequence TRAIN_SEQ (train_4k), global batch TRAIN_BATCH (train_4k's
+# 256 cut to one card), on the mesh TRAIN_MESH, TRAIN_STEPS steps of each
+# mode from one seeded init; its twin, the first layer in f32 at
+# TRAIN_TWIN = (batch, tokens), CUDA against the CPU
+TRAIN_ARCH_FULL = "granite-8b"
+TRAIN_SEED = 25
+TRAIN_SMOKE = (2, 18)
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 4096, 4, 4
+TRAIN_MESH = "2x2x1"
+TRAIN_TWIN = (1, 128)
+# CUDA against the CPU, max |difference| over the leaf's max |CPU value|:
+# for the gradients, and for m and v after the second step (they carry
+# the step), each 1e-4 or where larger twice the CPU's own f32 distance
+# from an f64 run of the same steps (two f32 runs, each that far from
+# f64: the smoke models' conditioning, near one-hot softmaxes); v, which
+# holds squares, at least twice m's limit. The parameters after the
+# second step are logged beside that limit, not held: AdamW moves an
+# entry whose gradient is f32 noise (a zero-init leaf such as rwkv6's w0
+# or qwen2's key bias) by up to lr on either device, whatever its size;
+# phase 11c holds AdamW's update on the card. The kernel route's
+# dQ, dK, dV against the scan route's: 1e-6 of each one's max; a backward
+# recomputed with the causal mask off must break it; its outputs at most
+# TRAIN_OUT_RATIO times as far from an f64 oracle as the plain version's
+# (max |difference| / max |oracle|). At the models' scores (hundreds) the
+# rounding of a score alone moves outputs past phase 7's tolerance
+# (breaches logged for both), and the f32 kernel's three TF32 passes keep
+# 22 bits of a product against f32's 24: up to 4x the plain version's
+# error, by design. On every f32 call the plain version on q, k, v
+# rounded to bf16 (a forward of lower precision) must break that ratio;
+# on q, k, v truncated to 20 mantissa bits its ratio is logged.
+# Losses: PICSOU against ATA 1e-4, pjit against ddp 5e-2 (the JAX tests'
+# tests/test_system.py), ddp with EF-int8 against ddp without 5e-2 and
+# above 0 (the compressor ran; int8 moves each gradient entry by at most
+# max |leaf| / 254 a step, error feedback carrying the rest forward), a
+# restart against the uninterrupted run 2e-3
+TRAIN_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-6
+TRAIN_SYNC_TOL = 1e-4
+TRAIN_MODE_TOL = 5e-2
+TRAIN_RESTART_TOL = 2e-3
+TRAIN_OUT_RATIO = 4
+TRAIN_MODES = {"pjit": dict(mode="pjit"),
+               "ddp picsou": dict(mode="ddp", sync="picsou"),
+               "ddp ata": dict(mode="ddp", sync="ata"),
+               "ddp picsou compress": dict(mode="ddp", sync="picsou",
+                                           compress=True)}
+# the step's device ranges the port marks (torch.profiler.record_function)
+TRAIN_RANGES = ("attention.scan_backward", "train.adamw", "train.sync",
+                "train.ef_int8", "train.value_and_grad")
+
+
+def train_launches(cfg) -> int:
+    """Attention kernel launches of one training step: once an attention
+    call, twice in a layer of a stacked segment under remat (its forward
+    runs again in the backward)."""
+    from repro_torch.models.model import encoder_plan, layer_plan
+    per = {"rwkv": 0, "dec": 2}
+    return sum(s.count * per.get(s.kind, 1)
+               * (2 if cfg.remat and s.count > 1 else 1)
+               for s in layer_plan(cfg) + encoder_plan(cfg))
+
+
+def _rel64(got, want) -> float:
+    """max |got - want| / max |want| in f64, on ``want``'s device."""
+    want = want.detach().double()
+    got = got.detach().to(want.device).double()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-300))
+
+
+def _train_args(**kw):
+    import argparse
+    base = dict(arch="granite-8b-smoke", steps=TRAIN_STEPS, seq=32, batch=8,
+                mesh="2x2", mode="pjit", sync="picsou", compress=False,
+                ckpt_dir="", ckpt_every=10, restore=False, seed=TRAIN_SEED,
+                lr=3e-4, layers=0, device="cuda")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def _smoke_train_inputs(cfg, i: int, dev):
+    b, s = TRAIN_SMOKE
+    rng = np.random.default_rng(TRAIN_SEED + i)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))}
+    if cfg.family in ("encdec", "vlm"):
+        n = cfg.encoder_seq if cfg.family == "encdec" else cfg.vision_seq
+        batch["frames" if cfg.family == "encdec" else "memory"] = (
+            torch.from_numpy(rng.standard_normal(
+                (b, n, cfg.d_model)).astype(np.float32)))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _train_steps_on(cfg, params, batch, dev, counted: list):
+    """value_and_grad, then two build_train_step steps from a fresh AdamW
+    state with warmup 1 (the lr scale is 0 at step 0 and whole at step 1),
+    on ``dev``: (loss, {"grads", "params", "m", "v": leaves}). The steps'
+    attention launches are appended to ``counted``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree_util import tree_leaves, tree_map
+    p = tree_map(lambda a: a.to(dev), params)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    (loss, _), grads = steps.value_and_grad(p, cfg, b)
+    tokens = b["tokens"]
+    bundle = steps.build_train_step(
+        cfg, tmesh.parse_mesh("1x1", dev),
+        ShapeSpec("train", tokens.shape[1], tokens.shape[0], "train"),
+        warmup=1, total_steps=10)
+    _zero_attention_counts()
+    p1, s1, _ = bundle(p, adamw_init(p), b)
+    p2, s2, _ = bundle(p1, s1, b)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counted.append(_attention_counts())
+    return float(loss), {"grads": tree_leaves(grads),
+                         "params": tree_leaves(p2), "m": tree_leaves(s2.m),
+                         "v": tree_leaves(s2.v)}
+
+
+def recording_grads(calls: list):
+    """A wrapper of the model's attention that keeps every call's q, k, v,
+    masks and blocks and, through a hook on its output, its output
+    gradient dO."""
+    def wrap(real):
+        def kept(q, k, v, *, causal=True, window=0, **kw):
+            out = real(q, k, v, causal=causal, window=window, **kw)
+            entry = dict(q=q.detach(), k=k.detach(), v=v.detach(),
+                         causal=causal, window=window,
+                         blocks=dict(block_q=kw.get("block_q", 512),
+                                     block_kv=kw.get("block_kv", 1024)))
+            calls.append(entry)
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g, e=entry: e.__setitem__("do", g.detach()))
+            return out
+        return kept
+    return wrap
+
+
+def check_route_grads(calls, what: str) -> dict:
+    """On each recorded call's own q, k, v, dO: the kernel route's dQ, dK,
+    dV (its forward on the kernel, counted apart from the main path)
+    against the scan route's, within TRAIN_GRAD_TOL of each one's max;
+    its output at most TRAIN_OUT_RATIO times as far from an f64 oracle as
+    the plain version's (entries over phase 7's tolerance logged for both:
+    the
+    models' scores are large enough that the plain version's own f32
+    rounding breaks it); and the faulty control, a backward recomputed
+    with the causal mask off, on every causal call, which must break the
+    limit."""
+    from repro_torch.kernels.ref import mha_reference
+    from repro_torch.models.attention import attention, scan_backward
+    out = dict(calls=0, exact=0, worst=0.0, over=0, plain_over=0,
+               out_err=0.0, plain_err=0.0, ratio=0.0, control=[],
+               low_ratio=[], trunc_ratio=[])
+    for c in calls:
+        if "do" not in c:
+            continue
+        q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+        kw = dict(causal=c["causal"], window=c["window"], **c["blocks"])
+        grads, outs = {}, {}
+        for impl in (None, "scan"):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            outs[impl] = attention(*xs, impl=impl, **kw)
+            grads[impl] = torch.autograd.grad(outs[impl], xs, do)
+        errs = [_rel64(a, b) for a, b in zip(grads[None], grads["scan"])]
+        out["calls"] += 1
+        out["exact"] += all(torch.equal(a, b) for a, b in
+                            zip(grads[None], grads["scan"]))
+        out["worst"] = max(out["worst"], max(errs))
+        atol, rtol = ATTN_TOL[q.dtype]
+        qkv = [x.transpose(1, 2) for x in (q, k, v)]
+        mask = dict(causal=c["causal"], window=c["window"])
+        want = mha_reference(*(x.double() for x in qkv), **mask)
+        lim = atol + rtol * want.abs()
+        errs = {}
+        for key, got in (("over", outs[None].detach().transpose(1, 2)),
+                         ("plain_over", mha_reference(*qkv, **mask))):
+            diff = (got.double() - want).abs()
+            out[key] += int((diff > lim).sum())
+            errs[key] = float(diff.max() / want.abs().max())
+        out["out_err"] = max(out["out_err"], errs["over"])
+        out["plain_err"] = max(out["plain_err"], errs["plain_over"])
+        out["ratio"] = max(out["ratio"], errs["over"] / max(
+            errs["plain_over"], 1e-12))
+        if q.dtype == torch.float32:
+            # controls: q, k, v rounded to bf16 (must break the ratio),
+            # and truncated to 20 of f32's 23 mantissa bits (logged: how
+            # fine a loss of precision the ratio resolves)
+            for key, cut in (("low_ratio", lambda x: x.to(torch.bfloat16)
+                              .float()),
+                             ("trunc_ratio", lambda x: (x.view(torch.int32)
+                                                        & ~7).view(
+                                                            torch.float32))):
+                low = mha_reference(*(cut(x) for x in qkv), **mask)
+                out[key].append(float(
+                    (low.double() - want).abs().max() / want.abs().max())
+                    / max(errs["plain_over"], 1e-12))
+        if c["causal"]:
+            bad = scan_backward(q, k, v, do, **dict(kw, causal=False))
+            out["control"].append(max(_rel64(a, b) for a, b in
+                                      zip(bad, grads["scan"])))
+        del grads, outs
+    if not out["calls"] or not out["control"] or out["worst"] > \
+            TRAIN_GRAD_TOL or out["ratio"] > TRAIN_OUT_RATIO or not min(
+                out["control"]) > TRAIN_GRAD_TOL or not all(
+                    r > TRAIN_OUT_RATIO for r in out["low_ratio"]):
+        raise AssertionError(f"train {what}: the kernel route's gradients "
+                             f"must be the scan route's within "
+                             f"{TRAIN_GRAD_TOL:g}, its outputs at most "
+                             f"{TRAIN_OUT_RATIO}x as far from f64 as the "
+                             f"plain version's, and every control break "
+                             f"its limit: {out}")
+    return out
+
+
+def train_smoke_phase(dev) -> int:
+    """13a. Returns the f32 attention kernel's launches in its main-path
+    runs (the train steps and the launcher's)."""
+    import tempfile
+
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as M
+    from repro_torch.tree_util import tree_map
+    cpu = torch.device("cpu")
+    t_start = time.perf_counter()
+    launched = 0
+    route = dict(calls=0, exact=0, worst=0.0, over=0, plain_over=0,
+                 ratio=0.0, control=[], low_ratio=[], trunc_ratio=[])
+    bad = {}
+    for i, arch in enumerate(list_configs()):
+        cfg = dataclasses.replace(get_config(arch).smoke(), remat=True)
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        params = M.init_model(cfg, TRAIN_SEED + i, device="cpu")
+        batch = _smoke_train_inputs(cfg, i, cpu)
+        counted = []
+        loss_c, want_c = _train_steps_on(cfg, params, batch, cpu, counted)
+        loss_g, got_g = _train_steps_on(cfg, params, batch, dev, counted)
+        want = 2 * train_launches(cfg)
+        if counted[-1] != {"all": want, "sm90": 0, "f32": want}:
+            raise AssertionError(f"train 13a {arch}: attention launches "
+                                 f"{counted[-1]} in two steps, expected "
+                                 f"{want} on the f32 kernel")
+        launched += want
+        # (remat off: the same values, one forward less)
+        _, want64 = _train_steps_on(
+            dataclasses.replace(cfg, dtype="float64", remat=False),
+            tree_map(lambda a: a.double(), params),
+            {k: v if k == "tokens" else v.double() for k, v in batch.items()},
+            cpu, [])
+        errs = {"loss": (abs(loss_g - loss_c) / abs(loss_c), TRAIN_TOL)}
+        for key, leaves in want_c.items():
+            own = max(_rel64(a, b) for a, b in zip(leaves, want64[key]))
+            errs[key] = (max(_rel64(a, b) for a, b in zip(got_g[key],
+                                                         leaves)),
+                         max(TRAIN_TOL, 2 * own))
+        # v holds squares: an error of a gradient entry doubles there
+        errs["v"] = (errs["v"][0], max(errs["v"][1], 2 * errs["m"][1]))
+        # the model's own attention calls, remat off so that each output
+        # is the one the backward differentiates
+        calls = []
+        with model_attention(recording_grads(calls)):
+            steps.value_and_grad(
+                tree_map(lambda a: a.to(dev), params),
+                dataclasses.replace(cfg, remat=False),
+                {k: v.to(dev) for k, v in batch.items()})
+        got = check_route_grads(calls, arch) if calls else None
+        if got:
+            for key in ("calls", "exact", "over", "plain_over"):
+                route[key] += got[key]
+            route["worst"] = max(route["worst"], got["worst"])
+            route["ratio"] = max(route["ratio"], got["ratio"])
+            route["control"] += got["control"]
+            route["low_ratio"] += got["low_ratio"]
+            route["trunc_ratio"] += got["trunc_ratio"]
+        log(f"[train 13a] {cfg.name} ({cfg.family}): CUDA vs CPU after "
+            f"two steps (limit: 1e-4 or twice the CPU's f32 distance from "
+            f"f64) " + ", ".join(f"{k} {e:.3e} ({'logged, ' * (k == 'params')}"
+                                 f"limit {t:.3g})"
+                                 for k, (e, t) in errs.items())
+            + f"; {want} f32 attention launches in two steps"
+            + (f"; kernel route vs scan route on {got['calls']} calls' own "
+               f"q, k, v, dO: max {got['worst']:.3e}, {got['exact']} bit "
+               f"for bit" if got else ""))
+        if any(e > t for k, (e, t) in errs.items() if k != "params"):
+            bad[arch] = errs
+    if bad:
+        raise AssertionError(f"train 13a: CUDA != CPU: {bad}")
+    log(f"[train 13a] kernel route's dQ, dK, dV against the scan route's "
+        f"on the models' own q, k, v, dO: {route['calls']} calls, "
+        f"{route['exact']} bit for bit (the backward replays the scan one "
+        f"query block at a time, summing dK, dV in the order autograd "
+        f"does), max {route['worst']:.3e} of each one's max (limit "
+        f"{TRAIN_GRAD_TOL:g}); outputs against an f64 oracle: the kernel's "
+        f"max |difference| at most {route['ratio']:.3f}x the plain "
+        f"version's on a call (limit {TRAIN_OUT_RATIO}; the plain version "
+        f"on q, k, v rounded to bf16, the control: "
+        f"{min(route['low_ratio']):.1f}x to {max(route['low_ratio']):.1f}x "
+        f"on {len(route['low_ratio'])} calls, every one over the limit; "
+        f"on q, k, v truncated to 20 mantissa bits, logged: "
+        f"{min(route['trunc_ratio']):.2f}x to "
+        f"{max(route['trunc_ratio']):.2f}x, median "
+        f"{median(sorted(route['trunc_ratio'])):.2f}x), "
+        f"entries over phase 7's f32 "
+        f"tolerance: kernel {route['over']}, plain version "
+        f"{route['plain_over']}; control (backward "
+        f"with the causal mask off) on {len(route['control'])} causal "
+        f"calls: min {min(route['control']):.3e}, every one over the limit")
+
+    log(f"[time] 13a every config {time.perf_counter() - t_start:.1f} s")
+    # the launcher, as a user runs it: ddp, PICSOU, EF-int8, (2, 2, 2)
+    argv = ["--arch", "granite-8b-smoke", "--steps", "6", "--mesh", "2x2x2",
+            "--mode", "ddp", "--sync", "picsou", "--compress", "--seq",
+            "32", "--device", "cuda"]
+    _zero_attention_counts()
+    losses = train.main(argv)
+    torch.cuda.synchronize()
+    n = _attention_counts()["f32"]
+    cfg = get_config("granite-8b-smoke")
+    if not all(math.isfinite(x) for x in losses) or n != 6 * \
+            train_launches(cfg):
+        raise AssertionError(f"train 13a: launcher losses {losses}, "
+                             f"{n} launches")
+    launched += n
+    log(f"[train 13a] python -m repro_torch.launch.train "
+        f"{' '.join(argv)}: ce {', '.join(f'{x:.4f}' for x in losses)} "
+        f"(finite), {n} f32 attention launches, "
+        f"{np.median(losses.step_s[1:]) * 1e3:.1f} ms a warm step")
+    # a restart: checkpoints every 4 steps, resumed after step 7, against
+    # an uninterrupted 12-step run
+    kw = dict(arch="starcoder2-3b-smoke", seq=32, mesh="2x2",
+              ckpt_every=4)
+    cfg = get_config("starcoder2-3b-smoke")
+    with tempfile.TemporaryDirectory() as ckpt:
+        _zero_attention_counts()
+        train.run(_train_args(steps=8, ckpt_dir=ckpt, **kw))
+        ref = train.run(_train_args(steps=12, **kw))
+        resumed = train.run(_train_args(steps=4, ckpt_dir=ckpt,
+                                        restore=True, **kw))
+        torch.cuda.synchronize()
+        n = _attention_counts()["f32"]
+    gaps = [abs(a - b) for a, b in zip(ref[8:12], resumed)]
+    log(f"[train 13a] restart after the step-7 checkpoint: steps 8-11 "
+        f"{', '.join(f'{x:.5f}' for x in resumed)} against "
+        f"{', '.join(f'{x:.5f}' for x in ref[8:12])} uninterrupted, max "
+        f"gap {max(gaps):.3e} (limit {TRAIN_RESTART_TOL:g}); {n} f32 "
+        f"attention launches")
+    if len(resumed) != 4 or max(gaps) >= TRAIN_RESTART_TOL or n != 24 * \
+            train_launches(cfg):
+        raise AssertionError(f"train 13a: restart {resumed} vs "
+                             f"{ref[8:12]}, {n} launches")
+    return launched + n
+
+
+def _model_flops(cfg, b: int, s: int) -> dict:
+    """Product FLOPs of one training step: 6 per token and matmul
+    parameter (forward 2, backward 4: every projection, the MLP and the
+    unembedding; the embedding is a gather), and causal attention's two
+    products, 2 * B * H * S^2 * D forward and twice that backward a
+    layer. ``executed`` adds what this step computes beyond the model:
+    remat's second forward of every layer, and the scan's backward, which
+    recomputes the whole scan and computes masked blocks too."""
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    n = count_params(M.model_defs(cfg))
+    layer = n - 2 * cfg.vocab * cfg.d_model - cfg.d_model     # embed, ln_f
+    layer_mm = layer - 2 * cfg.n_layers * cfg.d_model          # norms
+    matmul = layer_mm + cfg.vocab * cfg.d_model                # + unembed
+    t = b * s
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    attn_fwd = 2 * b * h * s * s * hd                          # causal half
+    model = 6 * matmul * t + 3 * attn_fwd * cfg.n_layers
+    executed = (6 * matmul * t + 2 * layer_mm * t
+                + cfg.n_layers * (2 + 6) * attn_fwd)
+    return dict(params=n, matmul=matmul, model=model, executed=executed)
+
+
+def train_profile(step) -> str:
+    """``step()`` once under torch.profiler: kernel time against the wall
+    (busy), and the shares of the kernel time of the GEMMs, the attention
+    kernel, and the ranges the port marks (the plain attention backward,
+    AdamW, the sync, EF-int8)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in TRAIN_RANGES]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total <= 0:
+        return "device time not measured (no kernels seen)"
+
+    def ms(pick):
+        return sum(e.self_device_time_total for e in kernels
+                   if pick(e.key)) / 1e3
+
+    gemm = ms(lambda k: re.search(r"gemm|xmma|nvjet|cutlass", k, re.I)
+              is not None and "flash_attention" not in k)
+    attn = ms(lambda k: "flash_attention" in k)
+    ranges = {e.key: e.device_time_total / 1e3 for e in events
+              if e.key in TRAIN_RANGES and e.device_type == DeviceType.CPU}
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[train 13b] profile: {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d} launches  {e.key[:80]}")
+    parts = [f"GEMMs {gemm:.3f} ms ({gemm / total:.1%})",
+             f"the attention kernel {attn:.3f} ms ({attn / total:.2%})"]
+    parts += [f"{name} {ranges[name]:.3f} ms ({ranges[name] / total:.1%})"
+              if name in ranges else f"{name} not measured"
+              for name in TRAIN_RANGES[:4]]
+    launches = sum(e.count for e in kernels)
+    return (f"{total:.3f} ms of kernels ({launches} launches) in "
+            f"{wall * 1e3:.3f} ms under the profiler ({total / wall / 1e3:.1%}"
+            f" busy): " + ", ".join(parts) + " (ranges hold the kernels "
+            f"launched inside them, GEMMs included)")
+
+
+def _train_shape_attention(cfg, dev) -> dict:
+    """The bf16 kernel at the training step's shape, beside SDPA and its
+    bound (the plain version's scores at this shape take 8.6 GB a call:
+    not timed here; phase 7 times it at F1)."""
+    from repro_torch.kernels import ops
+    shape = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+             cfg.resolved_head_dim)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    sets = input_sets(attn_inputs(shape, torch.bfloat16, gen),
+                      lambda: attn_inputs(shape, torch.bfloat16, gen))
+    k_t = graph_ms(lambda q, k, v: ops.flash_attention(q, k, v,
+                                                       causal=True),
+                   sets, calls_per_graph=4, windows=3)
+    sdpa, expand = sdpa_fn(TRAIN_SEQ, TRAIN_SEQ, 0, 1)
+    l_t = graph_ms(sdpa, sets, calls_per_graph=4, windows=3)
+    bnd = attn_bound(shape, torch.bfloat16, 0)
+    ms = median(k_t)
+    log(f"[train 13b] flash_attention at the training step's shape "
+        f"(B,H,KV,Sq,Skv,D)={shape} bf16 causal: {ms:.4f} ms/call median "
+        f"of {len(k_t)} windows (min {k_t[0]:.4f}, max {k_t[-1]:.4f}); "
+        f"SDPA {median(l_t):.4f} ms; bound {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_by']} ({bnd['flops'] / 1e12:.3f} TFLOP, "
+        f"{bnd['moved'] / 1e6:.1f} MB), {bnd['bound_ms'] / ms:.1%} of it; "
+        f"{len(sets)} input sets")
+    del sets
+    return dict(train_ms=ms, train_library_ms=median(l_t),
+                train_bound_ms=bnd["bound_ms"])
+
+
+def _train_twin(cfg, params, dev) -> None:
+    """The first layer at full width in f32, scan, B x tokens of
+    TRAIN_TWIN: value and grad on CUDA against the CPU, each leaf within
+    TRAIN_TOL of its max, or within twice the CPU's own f32 distance from
+    an f64 run (on CUDA) where that is larger."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps
+    from repro_torch.tree_util import tree_leaves, tree_map
+    b, s = TRAIN_TWIN
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    twin = {"embed": params["embed"],
+            "segments": [tree_map(lambda a: a[0], params["segments"][0])]}
+    toks = torch.from_numpy(SyntheticTokens(
+        vocab=cfg.vocab, seq_len=s, global_batch=b,
+        seed=17).batch_at(0)["tokens"])
+    t0 = time.perf_counter()
+    (l_g, _), g_g = steps.value_and_grad(twin, cfg1, {"tokens": toks.to(dev)},
+                                         impl="scan")
+    g_g = tree_leaves(g_g)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (_, _), g64 = steps.value_and_grad(
+        tree_map(lambda a: a.double(), twin),
+        dataclasses.replace(cfg1, dtype="float64"),
+        {"tokens": toks.to(dev)}, impl="scan")
+    g64 = tree_leaves(g64)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    (l_c, _), g_c = steps.value_and_grad(
+        tree_map(lambda a: a.cpu(), twin), cfg1, {"tokens": toks},
+        impl="scan")
+    g_c = [g.to(dev) for g in tree_leaves(g_c)]       # compared on the card
+    t3 = time.perf_counter()
+    err = max(_rel64(a, b) for a, b in zip(g_g, g_c))
+    own = max(_rel64(a, b) for a, b in zip(g_c, g64))
+    tol = max(TRAIN_TOL, 2 * own)
+    log(f"[train 13b] twin: the first layer at full width, f32, impl scan, "
+        f"B {b} x {s}: loss CUDA {float(l_g):.6f}, CPU {float(l_c):.6f}; "
+        f"gradients CUDA vs CPU max {err:.3e} of each leaf's max (limit "
+        f"{tol:.3g}: 1e-4 or twice the CPU's f32 distance from f64); "
+        f"against "
+        f"f64: CPU {own:.3e}, CUDA "
+        f"{max(_rel64(a, b) for a, b in zip(g_g, g64)):.3e}; CUDA "
+        f"{t1 - t0:.3f} s, f64 {t2 - t1:.3f} s, CPU with the copy "
+        f"{t3 - t2:.3f} s")
+    if err > tol:
+        raise AssertionError(f"train 13b twin: CUDA != CPU ({err:.3e})")
+
+
+def train_full_phase(dev) -> dict:
+    """13b. Returns the bf16 attention kernel's launches in the training
+    runs and its numbers at the training shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH_FULL),
+                              n_layers=TRAIN_LAYERS)
+    flops = _model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    per_step = train_launches(cfg)
+    log(f"[train 13b] {cfg.name}: d {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} kv, head {cfg.resolved_head_dim}), d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {TRAIN_LAYERS} of 36 layers: "
+        f"{flops['params']:,} {cfg.param_dtype} parameters, compute "
+        f"{cfg.dtype}, remat {cfg.remat}; B {TRAIN_BATCH} x {TRAIN_SEQ} = "
+        f"{tokens:,} tokens a step, mesh {TRAIN_MESH}; product FLOPs a "
+        f"step: model {flops['model'] / 1e12:.2f} TFLOP, executed "
+        f"{flops['executed'] / 1e12:.2f} TFLOP (remat's second forward, "
+        f"the scan backward's recompute and masked blocks)")
+    common = dict(arch=TRAIN_ARCH_FULL, layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
+                  batch=TRAIN_BATCH, mesh=TRAIN_MESH, steps=TRAIN_STEPS)
+    runs, launched = {}, 0
+    t_modes = time.perf_counter()
+    for name, kw in TRAIN_MODES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _zero_attention_counts()
+        t0 = time.perf_counter()
+        losses = train.run(_train_args(**common, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _attention_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        want = TRAIN_STEPS * per_step
+        if counts != {"all": want, "sm90": want, "f32": 0} or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"train 13b {name}: launches {counts} "
+                                 f"(expected {want} on the bf16 kernel) or "
+                                 f"losses {list(losses)}")
+        launched += want
+        warm = float(np.median(losses.step_s[1:]))
+        log(f"[train 13b] {name}: ce {', '.join(f'{x:.5f}' for x in losses)}"
+            f"; step {losses.step_s[0]:.4f} s cold, {warm:.4f} s warm "
+            f"(median of steps 2-{TRAIN_STEPS}), {tokens / warm:,.0f} "
+            f"tokens/s, model FLOPs {flops['model'] / warm / BF16_FLOPS:.1%}"
+            f" of 989 TFLOP/s bf16 (executed "
+            f"{flops['executed'] / warm / BF16_FLOPS:.1%}); peak device "
+            f"memory {peak:,} bytes ({peak / 2**30:.2f} GiB) above "
+            f"{held:,} held; {counts['sm90']} bf16 attention launches "
+            f"({per_step} a step: {TRAIN_LAYERS} layers, forward and remat "
+            f"recompute); run {wall:.2f} s with init")
+        runs[name] = losses
+    log(f"[time] 13b four modes {time.perf_counter() - t_modes:.1f} s")
+    gaps = {"ddp picsou vs ddp ata": max(
+                abs(a - b) for a, b in zip(runs["ddp picsou"],
+                                           runs["ddp ata"])),
+            "pjit vs ddp picsou": max(
+                abs(a - b) for a, b in zip(runs["pjit"], runs["ddp picsou"])),
+            "ddp picsou compress vs ddp picsou": max(
+                abs(a - b) for a, b in zip(runs["ddp picsou compress"],
+                                           runs["ddp picsou"]))}
+    log(f"[train 13b] losses: " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in gaps.items())
+        + f" (limits {TRAIN_SYNC_TOL:g}, {TRAIN_MODE_TOL:g}, and "
+        f"{TRAIN_MODE_TOL:g} with the compressed run's gap above 0)")
+    if gaps["ddp picsou vs ddp ata"] >= TRAIN_SYNC_TOL or \
+            gaps["pjit vs ddp picsou"] >= TRAIN_MODE_TOL or not \
+            0 < gaps["ddp picsou compress vs ddp picsou"] < TRAIN_MODE_TOL:
+        raise AssertionError(f"train 13b: modes disagree: {gaps}")
+
+    # one warm ddp PICSOU step under the profiler, then the model's own
+    # attention calls (remat off) for the route check on layer 0's
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    params = M.init_model(cfg, TRAIN_SEED, dev)
+    args = _train_args(**common, **TRAIN_MODES["ddp picsou"])
+    step = train.make_step(args, cfg, tmesh.parse_mesh(TRAIN_MESH, dev),
+                           shape, params)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=17)
+    batch = {"tokens": torch.from_numpy(data.batch_at(0)["tokens"]).to(dev)}
+    state = [params, adamw_init(params)]
+
+    def one():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    t0 = time.perf_counter()
+    one()
+    t1 = time.perf_counter()
+    log("[train 13b] ddp picsou step under torch.profiler: "
+        + train_profile(one))
+    log(f"[time] 13b warm-up step {t1 - t0:.1f} s, profiled step with the "
+        f"profiler's processing {time.perf_counter() - t1:.1f} s")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = []
+    t0 = time.perf_counter()
+    with model_attention(recording_grads(calls)):
+        steps.value_and_grad(params, dataclasses.replace(cfg, remat=False),
+                             batch)
+    first = check_route_grads(calls[:1], "13b layer 0 (bf16)")
+    log(f"[time] 13b route check {time.perf_counter() - t0:.1f} s")
+    log(f"[train 13b] kernel route vs scan route on layer 0's own q, k, v, "
+        f"dO (bf16, {tuple(calls[0]['q'].shape)}): max {first['worst']:.3e}"
+        f" of each one's max, bit for bit: {bool(first['exact'])}; output "
+        f"against an f64 oracle: max |difference| / max |oracle| kernel "
+        f"{first['out_err']:.3e}, plain version {first['plain_err']:.3e}, "
+        f"entries over phase 7's bf16 tolerance kernel {first['over']}, "
+        f"plain version {first['plain_over']}; control (causal off) "
+        f"{first['control'][0]:.3e}")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _train_twin(cfg, params, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    row = _train_shape_attention(cfg, dev)
+    log(f"[time] 13b twin {t1 - t0:.1f} s, kernel at the step's shape "
+        f"{time.perf_counter() - t1:.1f} s")
+    return dict(train=row, launches=launched)
+
+
+def train_phase(dev) -> dict:
+    """Phase 13: the attention launches of its runs by kernel, and the
+    bf16 kernel's numbers at the training shape."""
+    t0 = time.perf_counter()
+    f32 = train_smoke_phase(dev)
+    log(f"[time] 13a training, every family {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    full = train_full_phase(dev)
+    log(f"[time] 13b training {TRAIN_ARCH_FULL} {time.perf_counter() - t0:.1f}"
+        f" s")
+    return dict(full, launches_f32=f32)
+
+
 def build_all() -> dict:
     """Phase 2: every source, one nvcc each, all started together. Returns
     {source name: library path}."""
@@ -4586,12 +5298,16 @@ def main() -> int:
     t0 = time.perf_counter()
     served = serve_phase(dev)
     log(f"[time] serving phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained = train_phase(dev)
+    log(f"[time] training phase {time.perf_counter() - t0:.1f} s")
 
     # the main path's launches: the full-size runs, dense and windowed,
     # the sweep, the same runs with metrics on, the full-width topologies
     # and applications, the recorded, replayed and forked runs, and the
     # streaming sessions with their batch run; the attention kernels',
-    # phase 7's path and phase 12's served runs (bf16: 12b's, f32: 12a's)
+    # phase 7's path, phase 12's served runs (bf16: 12b's, f32: 12a's)
+    # and phase 13's training runs (bf16: 13b's, f32: 13a's)
     main = [launches, w_launches, s_launches, m_launches, t_launches,
             r_launches, f_launches, sp_launches, sf_launches]
     rows = [("quack_scan", dict(kern[True], launches=sum(
@@ -4599,13 +5315,13 @@ def main() -> int:
             ("quack_scan_no_lost", dict(kern[False], launches=sum(
                 x[1] for x in main), library_ms=None)),
             ("flash_attention", dict(
-                api["flash_attention"], **served["model"],
+                api["flash_attention"], **served["model"], **trained["train"],
                 launches=api["flash_attention"]["launches"]
-                + served["launches"])),
+                + served["launches"] + trained["launches"])),
             ("flash_attention_f32", dict(
                 api["flash_attention_f32"],
                 launches=api["flash_attention_f32"]["launches"]
-                + served["launches_f32"])),
+                + served["launches_f32"] + trained["launches_f32"])),
             ("rwkv6_chunked", api["rwkv6_chunked"])]
     entries = []
     for name, k in rows:
@@ -4617,7 +5333,7 @@ def main() -> int:
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"],
             **{key: k[key] for key in k if key.startswith(
-                ("windowed_", "lanes", "floor_", "model_"))}))
+                ("windowed_", "lanes", "floor_", "model_", "train_"))}))
     if any(e["launches"] <= 0 for e in entries):
         raise AssertionError("a kernel of the main path never launched")
     log(f"[time] whole run {time.perf_counter() - t_start:.1f} s")

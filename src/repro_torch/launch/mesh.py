@@ -33,26 +33,12 @@ import numpy as np
 import torch
 
 from ..models.params import resolve_device
+from ..models.sharding import P, PartitionSpec
 from ..tree_util import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["Mesh", "PartitionSpec", "P", "make_production_mesh",
            "make_mesh", "small_mesh", "parse_mesh", "to_blocks",
            "from_blocks", "psum", "psum_scatter", "all_gather", "shard_map"]
-
-
-class PartitionSpec(tuple):
-    """Which mesh axes split each dimension: one entry per leading dim,
-    ``None`` (not split), an axis name, or a tuple of names (split over
-    their product, the first the major one). ``P()`` replicates."""
-
-    def __new__(cls, *parts):
-        return super().__new__(cls, parts)
-
-    def __repr__(self) -> str:
-        return f"PartitionSpec{tuple(self)!r}"
-
-
-P = PartitionSpec
 
 
 class Mesh:

@@ -14,7 +14,10 @@ the route to the hand-written kernel.
   ``attention_scan``. ``impl="kernel"`` takes the op on any device (its
   plain ``ref.mha_reference`` on the CPU); ``"scan"`` and
   ``"triangular"`` are plain on any device. A shape the kernel refuses
-  raises; nothing falls back.
+  raises; nothing falls back. The kernel route is differentiable: its
+  backward is ``scan_backward``, the gradient of ``attention_scan`` (what
+  the JAX package differentiates) recomputed from the saved q, k, v one
+  query block at a time.
 
 All take q (B,S,H,D), k and v (B,Skv,KV,D) and fold query heads onto KV
 heads, query head h reading KV head h // (H/KV). The arithmetic sits where
@@ -32,7 +35,7 @@ import torch
 from ..kernels import ops
 
 __all__ = ["attention", "attention_scan", "attention_triangular",
-           "attention_decode", "update_kv_cache", "IMPLS"]
+           "attention_decode", "update_kv_cache", "scan_backward", "IMPLS"]
 
 NEG_INF = -1e30
 IMPLS = (None, "kernel", "scan", "triangular")
@@ -77,12 +80,11 @@ def _pad_seq(x, n: int):
     return torch.cat([x, x.new_zeros((x.shape[0], n) + x.shape[2:])], dim=1)
 
 
-def attention_scan(q, k, v, *, causal: bool, window: int = 0,
-                   block_q: int = 512, block_kv: int = 1024):
-    """Blocked online-softmax attention; masked blocks still compute."""
+def _scan_operands(q, k, v, block_q: int, block_kv: int):
+    """The scan's blocked operands: q scaled and padded as (B,nq,bq,KV,G,D),
+    k and v padded as (B,nkv,bkv,KV,D), and (bq, bkv, nq, nkv)."""
     b, sq, h, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
-    g = h // n_kv
     bq, bkv = min(block_q, sq), min(block_kv, skv)
     nq, nkv = -(-sq // bq), -(-skv // bkv)
     pad_q, pad_kv = nq * bq - sq, nkv * bkv - skv
@@ -90,30 +92,81 @@ def attention_scan(q, k, v, *, causal: bool, window: int = 0,
         q = _pad_seq(q, pad_q)
     if pad_kv:
         k, v = _pad_seq(k, pad_kv), _pad_seq(v, pad_kv)
-    qr = _gqa_reshape(_scale(q, d), n_kv).reshape(b, nq, bq, n_kv, g, d)
+    qr = _gqa_reshape(_scale(q, d), n_kv).reshape(b, nq, bq, n_kv,
+                                                  h // n_kv, d)
     kr = k.reshape(b, nkv, bkv, n_kv, d)
     vr = v.reshape(b, nkv, bkv, n_kv, d)
-    dev = q.device
-    outs = []
-    for qi in range(nq):
-        qb = qr[:, qi]
-        q_pos = qi * bq + torch.arange(bq, device=dev)
-        m = torch.full((b, n_kv, g, bq), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        carry = (m, torch.zeros_like(m),
-                 torch.zeros((b, n_kv, g, bq, d), dtype=torch.float32,
-                             device=dev))
-        for kv_i in range(nkv):
-            k_pos = kv_i * bkv + torch.arange(bkv, device=dev)
-            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kr[:, kv_i]).float()
-            s = s + _mask(q_pos, k_pos, causal, window)
-            s = torch.where(k_pos < skv, s, NEG_INF)     # padded kv tail
-            carry = _online_update(carry, s, vr[:, kv_i].float())
-        _, l, acc = carry
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return qr, kr, vr, (bq, bkv, nq, nkv)
+
+
+def _scan_block(qr, kr, vr, qi: int, blocks, skv: int, causal: bool,
+                window: int):
+    """Query block ``qi`` of the scan: (B,KV,G,bq,D) in f32."""
+    b, _, _, n_kv, g, d = qr.shape
+    bq, bkv, _, nkv = blocks
+    qb = qr[:, qi]
+    dev = qr.device
+    q_pos = qi * bq + torch.arange(bq, device=dev)
+    m = torch.full((b, n_kv, g, bq), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    carry = (m, torch.zeros_like(m),
+             torch.zeros((b, n_kv, g, bq, d), dtype=torch.float32,
+                         device=dev))
+    for kv_i in range(nkv):
+        k_pos = kv_i * bkv + torch.arange(bkv, device=dev)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kr[:, kv_i]).float()
+        s = s + _mask(q_pos, k_pos, causal, window)
+        s = torch.where(k_pos < skv, s, NEG_INF)     # padded kv tail
+        carry = _online_update(carry, s, vr[:, kv_i].float())
+    _, l, acc = carry
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def attention_scan(q, k, v, *, causal: bool, window: int = 0,
+                   block_q: int = 512, block_kv: int = 1024):
+    """Blocked online-softmax attention; masked blocks still compute."""
+    b, sq, h, d = q.shape
+    qr, kr, vr, blocks = _scan_operands(q, k, v, block_q, block_kv)
+    bq, nq = blocks[0], blocks[2]
+    outs = [_scan_block(qr, kr, vr, qi, blocks, k.shape[1], causal, window)
+            for qi in range(nq)]
     out = torch.stack(outs, dim=1)                   # (B,nq,KV,G,bq,D)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * bq, h, d)
     return out[:, :sq].to(q.dtype)
+
+
+def scan_backward(q, k, v, do, *, causal: bool, window: int = 0,
+                  block_q: int = 512, block_kv: int = 1024):
+    """dQ, dK, dV of ``attention_scan`` for the output gradient ``do``,
+    recomputed one query block at a time: block ``qi``'s part of the scan
+    is rebuilt from q, k, v and differentiated alone, so only one block's
+    scores are alive at once. dQ's blocks are disjoint; dK and dV sum
+    the blocks' parts in the scan's own order (the last query block
+    first, in the inputs' dtype), which is the order autograd sums them
+    in when it differentiates the whole scan."""
+    b, sq, h, d = q.shape
+    n_kv = k.shape[2]
+    with torch.enable_grad():
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        qr, kr, vr, blocks = _scan_operands(q, k, v, block_q, block_kv)
+        bq, nq = blocks[0], blocks[2]
+        # the output gradient as the scan's per-block layout sees it
+        g = do.to(torch.float32)
+        if nq * bq > sq:
+            g = _pad_seq(g, nq * bq - sq)
+        g = g.reshape(b, nq, bq, n_kv, h // n_kv, d).permute(0, 1, 3, 4, 2,
+                                                            5)
+        dq = dk = dv = None
+        for qi in reversed(range(nq)):
+            out = _scan_block(qr, kr, vr, qi, blocks, k.shape[1], causal,
+                              window)
+            gq, gk, gv = torch.autograd.grad(out, (q, k, v), g[:, qi],
+                                             retain_graph=qi > 0)
+            dq = gq if dq is None else dq + gq
+            dk = gk if dk is None else dk + gk
+            dv = gv if dv is None else dv + gv
+            del out
+    return dq, dk, dv
 
 
 def attention_triangular(q, k, v, *, causal: bool, window: int = 0,
@@ -142,14 +195,10 @@ def attention_triangular(q, k, v, *, causal: bool, window: int = 0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _kernel_attention(q, k, v, *, causal: bool, window: int):
+def _kernel_forward(q, k, v, *, causal: bool, window: int):
     """``kernels.ops.flash_attention`` in the model's (B,S,H,D) layout:
     the hand-written kernel on CUDA, ``ref.mha_reference`` on the CPU.
     Whole-length blocks meet its divisibility contract at any length."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("attention: the kernel route has no backward; "
-                           "pass impl='scan' to differentiate")
     sq, skv = q.shape[1], k.shape[1]
     if (causal or window > 0) and sq != skv:
         raise ValueError(f"attention: the kernel aligns queries to the end "
@@ -162,6 +211,30 @@ def _kernel_attention(q, k, v, *, causal: bool, window: int):
     return o.transpose(1, 2)
 
 
+class _KernelAttention(torch.autograd.Function):
+    """The kernel route under autograd: the forward is the kernel
+    (``_kernel_forward``); the backward is the gradient of
+    ``attention_scan`` with the same masks and blocks, recomputed from the
+    saved q, k, v one query block at a time (``scan_backward``). The JAX
+    package has no backward kernel: it differentiates that same scan."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_q, block_kv):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, block_q=block_q,
+                        block_kv=block_kv)
+        return _kernel_forward(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("attention.scan_backward"):
+            grads = scan_backward(q, k, v, do, **ctx.args)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,) * 4
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               impl: Optional[str] = None, block_q: int = 512,
               block_kv: int = 1024):
@@ -170,7 +243,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     if impl not in IMPLS:
         raise ValueError(f"attention: impl {impl!r} not in {IMPLS}")
     if impl == "kernel" or (impl is None and q.device.type == "cuda"):
-        return _kernel_attention(q, k, v, causal=causal, window=window)
+        return _KernelAttention.apply(q, k, v, causal, window, block_q,
+                                      block_kv)
     if impl == "triangular":
         return attention_triangular(q, k, v, causal=causal, window=window,
                                     block_q=block_q, block_kv=block_kv)

@@ -28,6 +28,7 @@ from .params import PD
 __all__ = [
     "rmsnorm", "rope", "swiglu", "block_defs", "block_fwd", "block_decode",
     "block_decode_cross", "embed_defs", "moe_ffn", "moe_ffn_dense",
+    "cache_defs_for_kind", "init_cache_shapes",
 ]
 
 
@@ -540,7 +541,7 @@ def block_decode_cross(p, x, cfg: ModelConfig, *, cache, pos: int):
 
 
 # --------------------------------------------------------------------------
-# embeddings
+# embeddings + cache shape declarations
 # --------------------------------------------------------------------------
 
 def embed_defs(cfg: ModelConfig) -> Dict[str, PD]:
@@ -554,3 +555,40 @@ def embed_defs(cfg: ModelConfig) -> Dict[str, PD]:
         out["enc_pos"] = PD((cfg.encoder_seq, d), ("enc_seq", "p_embed"),
                             scale=0.02)
     return out
+
+
+def cache_defs_for_kind(cfg: ModelConfig, kind: str, batch: int,
+                        seq: int) -> Dict[str, Tuple[Tuple[int, ...], Tuple]]:
+    """Cache entry shapes + logical names for one block of ``kind``."""
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    h = cfg.ssm_heads or cfg.n_heads
+    window = window_for(cfg, kind)
+    s_eff = min(seq, window) if window else seq
+    out: Dict[str, Tuple[Tuple[int, ...], Tuple]] = {}
+    if kind == "rwkv":
+        d = cfg.d_model
+        out["tm_state"] = ((batch, cfg.n_heads, hd, hd),
+                           ("batch", "heads", "head_dim", None))
+        out["tm_xprev"] = ((batch, d), ("batch", "embed"))
+        out["cm_xprev"] = ((batch, d), ("batch", "embed"))
+        return out
+    if kind in ("hybrid", "hybrid_global"):
+        out["ssm_state"] = ((batch, h, hd, cfg.ssm_state),
+                            ("batch", "heads", "head_dim", "ssm_state"))
+    out["k"] = ((batch, s_eff, kv, hd),
+                ("batch", "cache_seq", "kv_heads", "head_dim"))
+    out["v"] = ((batch, s_eff, kv, hd),
+                ("batch", "cache_seq", "kv_heads", "head_dim"))
+    if kind in ("dec", "cross"):
+        mem = cfg.encoder_seq or cfg.vision_seq
+        out["xk"] = ((batch, mem, kv, hd),
+                     ("batch", None, "kv_heads", "head_dim"))
+        out["xv"] = ((batch, mem, kv, hd),
+                     ("batch", None, "kv_heads", "head_dim"))
+    if kind == "cross":
+        out.pop("k"), out.pop("v")
+    return out
+
+
+def init_cache_shapes(cfg, kind, batch, seq):
+    return cache_defs_for_kind(cfg, kind, batch, seq)

@@ -1,29 +1,41 @@
-"""Model assembly: layer plans, parameter trees, prefill and decode.
+"""Model assembly: layer plans, parameter trees, the training loss,
+prefill and decode, and the shape declarations of a step's inputs.
 
 A config resolves to a *layer plan*, an ordered list of (block kind,
 count) segments, as in the JAX package. A segment of several layers
 holds its parameters stacked on a leading (count, ...) axis and runs as a
 loop over per-layer views, each layer's weights cast to the activations'
 dtype where they are used (the JAX package's ``lax.scan``); its caches
-come back stacked the same way. Recurrent families (rwkv / hybrid)
-thread their state through the blocks; decode threads per-layer caches.
+come back stacked the same way. With ``cfg.remat`` (the default) each
+layer of such a segment runs under activation checkpointing when
+gradients are recorded (the JAX package's ``jax.checkpoint`` of the scan
+body; ``remat_policy="dots"`` keeps the matmul outputs, as
+``dots_with_no_batch_dims_saveable`` does). Recurrent families (rwkv /
+hybrid) thread their state through the blocks; decode threads per-layer
+caches. ``param_specs`` / ``cache_specs`` / ``input_specs`` declare
+shapes and dtypes as ``meta`` tensors, with their logical axis names.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeSpec
 from ..tree_util import tree_map
 from . import blocks as B
-from .params import PD, init_params, resolve_device, torch_dtype
+from .params import (PD, init_params, meta, names_tree, resolve_device,
+                     shape_tree, torch_dtype)
 
 __all__ = ["Segment", "layer_plan", "encoder_plan", "model_defs",
-           "init_model", "encode", "forward", "prefill", "decode_step"]
+           "init_model", "param_specs", "encode", "forward", "loss_fn",
+           "prefill", "decode_step", "cache_specs", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +128,13 @@ def init_model(cfg: ModelConfig,
     return init_params(gen, model_defs(cfg), cfg.param_dtype, dev)
 
 
+def param_specs(cfg: ModelConfig):
+    """(tree of ``meta`` tensors, tree of logical-name tuples) of the
+    parameters."""
+    defs = model_defs(cfg)
+    return shape_tree(defs, cfg.param_dtype), names_tree(defs)
+
+
 # --------------------------------------------------------------------------
 # forward (prefill)
 # --------------------------------------------------------------------------
@@ -144,10 +163,39 @@ def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+# matmul outputs without batch dims (a bmm of batch 1 is torch.einsum's
+# form of a plain product): what "dots" keeps for the backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS or (op in _BATCHED_DOTS and args[-2].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing (non-reentrant: its forward
+    runs again in the backward) when ``cfg.remat`` and gradients are being
+    recorded; ``fn`` itself otherwise."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return run
+
+
 def _run_segment(seg_p, x, cfg: ModelConfig, seg: Segment, *, positions,
                  memory, impl, return_cache: bool):
     """Returns (x, aux, caches), caches stacked over the segment's
-    layers."""
+    layers. The layers of a stacked segment run under ``_remat``."""
     def one(p, x):
         carry = _zero_carry(cfg, seg.kind, x.shape[0], x.device)
         xx, aux, nc = B.block_fwd(p, x, cfg, seg.kind, positions=positions,
@@ -158,10 +206,11 @@ def _run_segment(seg_p, x, cfg: ModelConfig, seg: Segment, *, positions,
 
     if seg.count == 1:
         return one(seg_p, x)
+    layer = _remat(one, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for i in range(seg.count):
-        x, a, cache = one(_layer(seg_p, i), x)
+        x, a, cache = layer(_layer(seg_p, i), x)
         aux = aux + a
         caches.append(cache)
     return x, aux, _stack(caches)
@@ -236,6 +285,22 @@ def forward(params, cfg: ModelConfig, tokens, *, memory=None,
     return logits, aux
 
 
+def loss_fn(params, cfg: ModelConfig, batch, *, impl: Optional[str] = None):
+    """Next-token cross entropy (+0.01 * MoE aux), in f32: returns
+    (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    memory = batch.get("memory")
+    if cfg.family == "encdec":
+        memory = encode(params, cfg, batch["frames"], impl=impl)
+    logits, aux = forward(params, cfg, tokens, memory=memory, impl=impl)
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
 # --------------------------------------------------------------------------
 # serving
 # --------------------------------------------------------------------------
@@ -293,3 +358,59 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos: int):
             ncs.append(nc)
         new_caches.append(_stack(ncs))
     return _logits(params, x, cfg, dtype), new_caches
+
+
+# --------------------------------------------------------------------------
+# shape declarations (meta tensors: no allocation)
+# --------------------------------------------------------------------------
+
+def cache_specs(cfg: ModelConfig, batch: int, seq: int):
+    """``meta`` tensor + logical-name trees for the decode caches."""
+    dtype = torch_dtype(cfg.dtype)
+    shapes, names = [], []
+    for seg in layer_plan(cfg):
+        defs = B.cache_defs_for_kind(cfg, seg.kind, batch, seq)
+        sh: Dict[str, Any] = {}
+        nm: Dict[str, Any] = {}
+        for key, (shape, lnames) in defs.items():
+            dt = torch.float32 if ("state" in key or "xprev" in key) else dtype
+            if seg.count > 1:
+                sh[key] = meta((seg.count,) + shape, dt)
+                nm[key] = ("layers",) + lnames
+            else:
+                sh[key] = meta(shape, dt)
+                nm[key] = lnames
+        shapes.append(sh)
+        names.append(nm)
+    return shapes, names
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec):
+    """Model inputs as ``meta`` tensors (+ logical names) for a cell.
+
+    Stub frontends (whisper frames / VLM patches) appear here as
+    precomputed embeddings.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    dtype = torch_dtype(cfg.dtype)
+    ii = torch.int32
+    specs: Dict[str, Any] = {}
+    names: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = meta((b, s), ii)
+        names["tokens"] = ("batch", "seq")
+        if cfg.family == "encdec":
+            specs["frames"] = meta((b, cfg.encoder_seq, cfg.d_model), dtype)
+            names["frames"] = ("batch", "enc_seq", "embed")
+        if cfg.family == "vlm":
+            specs["memory"] = meta((b, cfg.vision_seq, cfg.d_model), dtype)
+            names["memory"] = ("batch", "vision_seq", "embed")
+    else:  # decode: one new token against a seq-long cache
+        specs["token"] = meta((b, 1), ii)
+        names["token"] = ("batch", None)
+        specs["pos"] = meta((), ii)
+        names["pos"] = ()
+        cache_sh, cache_nm = cache_specs(cfg, b, s)
+        specs["caches"] = cache_sh
+        names["caches"] = cache_nm
+    return specs, names

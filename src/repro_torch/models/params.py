@@ -1,9 +1,12 @@
 """Parameter declarations and their random init, on trees of tensors.
 
 Every parameter is declared once as a ``PD(shape, names, scale)``, as in
-the JAX package; ``init_params`` draws a tree of tensors from it, and
-``params_from_numpy`` carries the JAX package's weights (numpy leaves)
-into the port's tree, same key paths, shapes and dtypes.
+the JAX package; ``init_params`` draws a tree of tensors from it,
+``shape_tree`` gives its shapes and dtypes as ``meta`` tensors (the
+stand-ins for ``jax.ShapeDtypeStruct``: nothing is allocated),
+``names_tree`` its logical axis names, and ``params_from_numpy``
+carries the JAX package's weights and AdamW state (numpy leaves) into
+the port's trees, same key paths, shapes and dtypes.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ import torch
 
 from ..tree_util import tree_leaves, tree_map
 
-__all__ = ["PD", "init_params", "count_params", "params_from_numpy",
-           "resolve_device", "torch_dtype"]
+__all__ = ["PD", "init_params", "shape_tree", "names_tree",
+           "count_params", "params_from_numpy", "resolve_device",
+           "torch_dtype", "meta"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +85,25 @@ def init_params(gen: torch.Generator, defs, param_dtype: str = "float32",
     return tree_map(draw, defs)
 
 
+def meta(shape, dtype) -> torch.Tensor:
+    """A shape and dtype with no storage: a ``meta`` tensor."""
+    return torch.empty(tuple(shape), dtype=torch_dtype(dtype),
+                       device="meta")
+
+
+def shape_tree(defs, param_dtype: str = "float32"):
+    """PD tree -> tree of ``meta`` tensors (shapes and dtypes, no
+    allocation)."""
+    return tree_map(lambda d: meta(d.shape, d.dtype or param_dtype), defs)
+
+
+def names_tree(defs):
+    """PD tree -> tree of logical-name tuples (read a tuple leaf against
+    the structure of ``shape_tree``: ``tree_util.tree_map(fn, shapes,
+    names)``)."""
+    return tree_map(lambda d: d.names, defs)
+
+
 def count_params(defs) -> int:
     return int(sum(int(np.prod(d.shape)) for d in tree_leaves(defs)))
 
@@ -95,10 +118,32 @@ def _from_numpy(a, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _is_adamw_state(node) -> bool:
+    return (isinstance(node, tuple) and type(node).__name__ == "AdamWState"
+            and getattr(type(node), "_fields", ()) == ("step", "m", "v"))
+
+
+def _carry(node, dev):
+    if _is_adamw_state(node):
+        from ..optim.adamw import AdamWState
+        return AdamWState(*(_carry(x, dev) for x in node))
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _carry(v, dev) for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(type(node), "_fields"):
+        return type(node)(*(_carry(x, dev) for x in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_carry(x, dev) for x in node)
+    return _from_numpy(node, dev)
+
+
 def params_from_numpy(tree, device=None):
     """The JAX package's parameter tree (numpy leaves, e.g. from
     ``jax.device_get``) as the port's: the same structure, key paths,
     shapes and dtypes (bfloat16 carried bit for bit through a uint16
-    view), on ``device`` (CUDA unless named)."""
-    dev = resolve_device(device)
-    return tree_map(lambda a: _from_numpy(a, dev), tree)
+    view), on ``device`` (CUDA unless named). An AdamW state in the tree
+    (the JAX package's ``AdamWState(step, m, v)``) becomes the port's
+    ``optim.AdamWState``, so ``(params, opt_state)`` carries across
+    whole."""
+    return _carry(tree, resolve_device(device))

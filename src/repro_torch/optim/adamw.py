@@ -4,7 +4,8 @@ Plain functions on trees of tensors, the JAX package's formula step for
 step (bias-corrected moments, eps added to sqrt(v-hat), decay on the
 f32 parameters, updates computed in f32 and cast back to each
 parameter's dtype); not ``torch.optim.AdamW``, whose formula differs.
-The m/v trees have the parameters' structure.
+The m/v trees have the parameters' structure, and their declarations
+(``opt_state_specs``, ``meta`` tensors) the parameters' logical names.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from ..tree_util import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "global_norm"]
+           "global_norm", "opt_state_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +45,21 @@ def adamw_init(params) -> AdamWState:
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=zeros, v=tree_map(torch.clone, zeros))
+
+
+def opt_state_specs(param_shapes, param_names):
+    """``meta`` tensors + logical names for the optimizer state tree: m and
+    v in f32 with the parameters' shapes and names, ``step`` an int32
+    scalar named ``()``."""
+    def f32(s):
+        return torch.empty(s.shape, dtype=torch.float32, device="meta")
+
+    shapes = AdamWState(step=torch.empty((), dtype=torch.int32,
+                                         device="meta"),
+                        m=tree_map(f32, param_shapes),
+                        v=tree_map(f32, param_shapes))
+    names = AdamWState(step=(), m=param_names, v=param_names)
+    return shapes, names
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -15,7 +15,8 @@ import dataclasses
 from typing import Any, Callable, List, Tuple
 
 __all__ = ["TreeDef", "tree_flatten", "tree_flatten_with_path",
-           "tree_unflatten", "tree_leaves", "tree_map"]
+           "tree_flatten_up_to", "tree_unflatten", "tree_leaves",
+           "tree_map"]
 
 _LEAF = "leaf"
 _END = object()
@@ -98,7 +99,32 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
-def tree_map(fn: Callable, tree) -> Any:
-    """``fn`` over the leaves of ``tree``, in a tree of its structure."""
+def tree_flatten_up_to(treedef: TreeDef, tree) -> List[Any]:
+    """The subtrees of ``tree`` at ``treedef``'s leaves, in leaf order
+    (``jax.tree_util``'s ``flatten_up_to``): a tree of names whose leaves
+    are tuples, read against the structure of a tree of tensors."""
+    out: List[Any] = []
+
+    def walk(td: TreeDef, node) -> None:
+        if td.kind == _LEAF:
+            out.append(node)
+            return
+        kind, keys, kids = _children(node)
+        if kind != td.kind or keys != td.keys or len(kids) != len(
+                td.children):
+            raise ValueError(f"tree structure {kind} {keys} does not match "
+                             f"{td.kind} {td.keys}")
+        for child_td, (_, child) in zip(td.children, kids):
+            walk(child_td, child)
+
+    walk(treedef, tree)
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    """``fn`` over the leaves of ``tree``, in a tree of its structure; each
+    tree of ``rest`` gives the subtree at the same place as a further
+    argument (read up to ``tree``'s leaves)."""
     leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, [fn(x) for x in leaves])
+    others = [tree_flatten_up_to(treedef, r) for r in rest]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])

@@ -1492,12 +1492,140 @@ def test_smoke_model_on_cuda_equals_its_cpu_twin(arch):
         assert err <= tol
 
 
+def _route_grads(attn, q, k, v, do, impl, **kw):
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    return torch.autograd.grad(attn(*xs, impl=impl, **kw), xs, do)
+
+
 def test_model_kernel_route_refuses_autograd_on_cuda():
+    """The kernel route under autograd on CUDA (the name is from when it
+    refused): its forward launches the dtype's kernel once, counted; its
+    dQ, dK, dV are the scan route's within 1e-6 of each one's largest
+    magnitude, in bf16 and f32, causal and with a sliding window."""
     _need_cuda()
     from repro_torch.models.attention import attention
-    q = torch.randn(1, 128, 4, 64, device="cuda", requires_grad=True)
-    k = torch.randn(1, 128, 2, 64, device="cuda")
-    with pytest.raises(RuntimeError, match="impl='scan'"):
-        attention(q, k, k)
-    attention(q, k, k, impl="scan").sum().backward()
-    assert q.grad is not None
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fa = cuda_flash_attention
+    for dtype, window in ((torch.bfloat16, 0), (torch.float32, 0),
+                          (torch.bfloat16, 96)):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for shape in
+                       ((2, 256, 8, 64), (2, 256, 2, 64), (2, 256, 2, 64),
+                        (2, 256, 8, 64)))
+        kw = dict(window=window, block_q=64, block_kv=128)
+        fa.launches = fa.launches_sm90 = fa.launches_f32 = 0
+        got = _route_grads(attention, q, k, v, do, None, **kw)
+        torch.cuda.synchronize()
+        route = (fa.launches_sm90 if dtype == torch.bfloat16
+                 else fa.launches_f32)
+        assert fa.launches == route == 1
+        want = _route_grads(attention, q, k, v, do, "scan", **kw)
+        assert fa.launches == 1
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.dtype == dtype
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err <= 1e-6, (dtype, window, float(err))
+
+
+# the training path: one build_train_step step of a smoke config with
+# remat on, CUDA (attention on the f32 kernel) against the CPU
+TRAIN_ARCHS = ["granite-8b", "mixtral-8x22b", "hymba-1.5b", "whisper-small"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_cuda_equals_cpu(arch):
+    """Loss, every gradient leaf, and AdamW's m and v after two
+    ``build_train_step`` steps (warmup 1: the lr scale is 0 at step 0 and
+    whole at step 1; m and v carry the steps' gradients), each within
+    1e-4 of each leaf's largest magnitude or, where larger, within
+    twice the CPU's own f32 distance from an f64 run of the same steps
+    (two f32 runs, each that far from f64: the smoke model's
+    conditioning, mixtral-8x22b, whisper-small); v, which holds squares,
+    within at least twice m's limit. The parameters after the moving
+    step are not compared: AdamW moves an entry whose gradient is f32
+    noise by up to lr on either device (``chip_smoke.py`` 13a logs the
+    distance). A step launches the f32 kernel twice a layer of a stacked
+    segment (remat) and once elsewhere."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree_util import tree_leaves, tree_map
+    cfg, params, tokens, memory = _served_model(arch)
+    cfg = dataclasses.replace(cfg, remat=True)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    batch = {"tokens": tokens}
+    if memory is not None:
+        batch["frames" if cfg.family == "encdec" else "memory"] = memory
+    shape = ShapeSpec("train", tokens.shape[1], tokens.shape[0], "train")
+
+    def rel(g, w):
+        return float((g.cpu().double() - w.double()).abs().max()
+                     / w.double().abs().max().clamp(min=1e-30))
+
+    def run(dev, cfg, params, batch):
+        p = tree_map(lambda a: a.to(dev), params)
+        b = {k: x.to(dev) for k, x in batch.items()}
+        (loss, _), grads = steps.value_and_grad(p, cfg, b)
+        bundle = steps.build_train_step(cfg, tmesh.parse_mesh("1x1", dev),
+                                        shape, warmup=1, total_steps=10)
+        fa = cuda_flash_attention
+        fa.launches = fa.launches_sm90 = fa.launches_f32 = 0
+        p1, s1, _ = bundle(p, adamw_init(p), b)
+        p2, s2, _ = bundle(p1, s1, b)
+        assert int(s2.step) == 2 and not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(p1),
+                                              tree_leaves(p2)))
+        return loss, {"grads": tree_leaves(grads), "m": tree_leaves(s2.m),
+                      "v": tree_leaves(s2.v)}, fa.launches_f32
+
+    loss_c, want, _ = run("cpu", cfg, params, batch)
+    loss_g, got, launches = run("cuda", cfg, params, batch)
+    _, f64, _ = run("cpu", dataclasses.replace(cfg, dtype="float64"),
+                    tree_map(lambda a: a.double(), params),
+                    {k: x if k == "tokens" else x.double()
+                     for k, x in batch.items()})
+    per = {"rwkv": 0, "dec": 2}
+    calls = sum(seg.count * per.get(seg.kind, 1) * (2 if seg.count > 1
+                                                    else 1)
+                for seg in M.layer_plan(cfg) + M.encoder_plan(cfg))
+    assert launches == 2 * calls
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    tols = {key: max([1e-4] + [2 * rel(w, d) for w, d in zip(want[key],
+                                                             f64[key])])
+            for key in want}
+    tols["v"] = max(tols["v"], 2 * tols["m"])      # v holds squares
+    for key, tol in tols.items():
+        for g, w in zip(got[key], want[key]):
+            assert g.is_cuda and g.dtype == w.dtype
+            assert rel(g, w) <= tol, (key, rel(g, w), tol)
+
+
+def test_train_launcher_on_cuda(tmp_path):
+    """``python -m repro_torch.launch.train --device cuda``: ddp with
+    PICSOU and EF-int8 on a (2, 2, 2) mesh trains with finite losses on
+    the kernel route, and a restart continues an uninterrupted run."""
+    _need_cuda()
+    import math
+
+    from repro_torch.launch import train
+    fa = cuda_flash_attention
+    fa.launches = 0
+    losses = train.main(["--arch", "granite-8b-smoke", "--steps", "6",
+                         "--mesh", "2x2x2", "--mode", "ddp", "--sync",
+                         "picsou", "--compress", "--seq", "32",
+                         "--device", "cuda"])
+    assert len(losses) == 6 and all(math.isfinite(x) for x in losses)
+    assert fa.launches > 0
+    common = ["--arch", "starcoder2-3b-smoke", "--seq", "32", "--mesh",
+              "2x2", "--ckpt-every", "4", "--device", "cuda"]
+    train.main(common + ["--steps", "8", "--ckpt-dir", str(tmp_path)])
+    ref = train.main(common + ["--steps", "12"])
+    resumed = train.main(common + ["--steps", "4", "--ckpt-dir",
+                                   str(tmp_path), "--restore"])
+    assert all(abs(a - b) < 2e-3 for a, b in zip(ref[8:12], resumed))

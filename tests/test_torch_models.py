@@ -13,8 +13,9 @@ other configs' limit) and its decoder amplifies that.
 
 Also: the kernel route (``impl="kernel"``, ``ref.mha_reference`` on the
 CPU) against the scan within 1e-5 (whisper-small 1e-4, for the reason
-above), scan against triangular, MoE dense
-against scatter, the blocked recurrent scans against the per-step ones,
+above), and its gradient equal to the scan's, scan against triangular,
+MoE dense against scatter, the blocked recurrent scans against the
+per-step ones,
 the port's own prefill / decode consistency, a bf16 case, the init
 distribution against the JAX package's (the stacked fan-in quirk
 included), and the CPU / CUDA rule of the entry points.
@@ -291,13 +292,27 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
 
 
 def test_kernel_route_refuses_autograd():
-    q = torch.randn(1, 8, 4, 16, requires_grad=True)
-    k = torch.randn(1, 8, 2, 16)
-    with pytest.raises(RuntimeError, match="impl='scan'"):
-        tattn.attention(q, k, k, impl="kernel")
-    out = tattn.attention(q, k, k, impl="scan")
-    out.sum().backward()
-    assert q.grad is not None
+    """The kernel route under autograd (the name is from when it refused):
+    its gradients are the scan route's, bit for bit, in f32 and bf16 and
+    with a sliding window (its backward is ``attention.scan_backward``,
+    which recomputes the scan one query block at a time); an unknown
+    ``impl`` still raises."""
+    rng = np.random.default_rng(0)
+    for dtype, window in ((torch.float32, 0), (torch.bfloat16, 0),
+                          (torch.float32, 5)):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            shape).astype(np.float32)).to(dtype) for shape in
+            ((2, 20, 4, 16), (2, 20, 2, 16), (2, 20, 2, 16),
+             (2, 20, 4, 16)))
+        grads = {}
+        for impl in ("kernel", "scan"):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = tattn.attention(*xs, window=window, impl=impl, block_q=8,
+                                  block_kv=8)
+            grads[impl] = torch.autograd.grad(out, xs, do)
+        for got, want in zip(grads["kernel"], grads["scan"]):
+            assert got.dtype == dtype and torch.equal(got, want), (dtype,
+                                                                   window)
     with pytest.raises(ValueError, match="impl"):
         tattn.attention(q, k, k, impl="pallas")
 
