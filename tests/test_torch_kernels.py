@@ -37,6 +37,17 @@ RWKV_SHAPES = [(2, 2, 64, 32, 16), (1, 4, 128, 64, 64), (2, 1, 256, 16, 128),
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The per-tile emulations run long products on the CPU: under a
+    parallel test run torch's intra-op threads compete with the other
+    workers' and multiply the file's time many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ids(shapes):
     return ["x".join(map(str, s)) for s in shapes]
 
