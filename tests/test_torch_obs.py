@@ -55,6 +55,17 @@ from repro_torch.obs.tracer import (SpanTracer, obs_begin, obs_span,
 from test_obs import FIXTURES, GC_STALL, IDS
 from test_torch_windowed import _assert_windowed_equal, _port_spec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BFT1 = JRSMConfig.bft(1)
 CPU = torch.device("cpu")
 OBS_FIELDS = ("latency_hist", "occupancy_hwm", "gc_lag_hwm",

@@ -13,6 +13,7 @@ replays as graphs (``tests/test_torch_gpu.py`` holds the two together).
 import dataclasses
 
 import pytest
+import torch
 
 import repro.core.protocols as jprot
 import repro.core.retransmit as jret
@@ -29,6 +30,17 @@ from repro.core import SimConfig as JSimConfig
 from test_pipeline import FIXTURES, GC_STALL, IDS
 from test_torch_windowed import (_assert_outputs_equal,
                                  _assert_windowed_equal, _port_spec)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 BFT1 = JRSMConfig.bft(1)
 

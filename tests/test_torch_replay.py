@@ -41,6 +41,17 @@ from test_replay import (CRASH_S0, DROP_R0, GC_STALL, METRICS, OUTPUTS, SIM,
 from test_torch_topology import _port_topo
 from test_torch_windowed import _port_spec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BFT1 = JRSMConfig.bft(1)
 TBFT1 = tcore.RSMConfig.bft(1)
 CPU = dict(device="cpu")

@@ -34,6 +34,17 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import quack_reference
 from test_windowed import FIXTURES, GC_STALL, IDS, METRICS, OUTPUTS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BFT1 = JRSMConfig.bft(1)
 CPU = torch.device("cpu")
 
