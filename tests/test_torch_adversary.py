@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import repro.adversary as jadv
 import repro.core as jcore
@@ -42,6 +43,17 @@ from test_adversary import ENGINE_PATHS, REPLAY_SIM, _sim
 from test_torch_replay import _tinjs
 from test_torch_topology import _port_topo
 from test_torch_windowed import _port_spec
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 BFT1 = JRSMConfig(n=4, u=1, r=1)
 OUTPUTS = ("quack_time", "deliver_time", "retry", "recv_has")

@@ -38,6 +38,17 @@ from repro_torch.core import snapshot
 from test_torch_windowed import _port_spec
 from test_windowed import GC_STALL
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BFT1 = JRSMConfig.bft(1)
 NP_ASARRAY = np.asarray
 OUTPUTS = ("quack_time", "deliver_time", "retry", "recv_has",

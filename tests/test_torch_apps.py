@@ -24,6 +24,17 @@ import repro_torch.core as tcore
 from test_apps import BFT1 as JBFT1
 from test_apps import DR_FIXTURES, RECON_FIXTURES, RECON_SIM, SIM
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 OUTPUTS = ("quack_time", "deliver_time", "retry", "recv_has")
 BFT1 = tcore.RSMConfig.bft(1)
 DR_IDS = [f[0] for f in DR_FIXTURES]

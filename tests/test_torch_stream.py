@@ -57,6 +57,17 @@ from repro_torch.obs.report import validate_chrome_trace
 from repro_torch.obs.tracer import SpanTracer
 from repro_torch.topology.engine import FloorPlanner
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 KINDS = ("constant", "diurnal", "bursty", "heavytail")
 CPU = torch.device("cpu")
 # a stream that outgrows a 32-slot window twice (bursty arrivals); at

@@ -39,6 +39,17 @@ from test_windowed import FIXTURES as WINDOWED
 from test_windowed import IDS as WINDOWED_IDS
 from test_windowed import METRICS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BFT1 = JRSMConfig.bft(1)
 LATENCY = ("send_step", "delivery_latency")
 OBS_FIELDS = ("latency_hist", "occupancy_hwm", "gc_lag_hwm",
