@@ -346,6 +346,16 @@ Phases, each of which raises on failure (exit code non-zero):
    B 1 x 128: gradients CUDA against the CPU); the bf16 kernel at the
    step's shape (4, 32, 8, 4,096, 4,096, 128) beside SDPA and its
    bound. No checkpoint at full width (phase 11 times one).
+14. The dry run (``launch/dryrun.py``'s count, ``StepBundle.lower()`` on
+   ``meta`` tensors, ``roofline/``) on 13b's pjit step and 12b's served
+   prefill: (a) the meta count of 13b's step (impl "scan", mesh 2x2x1)
+   equals, exactly, ``torch.utils.flop_counter.FlopCounterMode`` over one
+   real step of the same bundle on the card, a proof that the scaled
+   meta run is the step; (b) ``roofline.model_flops`` <= the counted
+   FLOPs, and the counted FLOPs over 13b's measured warm pjit step (and
+   12b's warm prefill) within 989 TFLOP/s, the share printed; (c) the
+   argument bytes a position within 13b's pjit and 12b's measured peak
+   device memory.
 
 Programs outlive runs (``repro_torch.core.graphs``): a second run of a
 shape captures nothing. Every ``Measured`` run (phases 5, 5w, 5s, 5m, 8b,
@@ -4362,6 +4372,7 @@ def serve_full_phase(dev) -> dict:
         f"launches {counts['sm90']} in the run ({layers} layers: "
         f"{counts['sm90'] / layers:g} a prefill layer, 0 a decode step)")
     warm = serve.generate(params, cfg, prompts, n_gen)
+    measured = dict(prefill_s=warm.prefill_s, peak=peak)
     if not np.array_equal(warm.tokens, out.tokens):
         raise AssertionError("serve 12b: a second run gave other tokens")
     log(f"[serve 12b] again (warm): prefill {warm.prefill_s:.4f} s, decode "
@@ -4443,7 +4454,7 @@ def serve_full_phase(dev) -> dict:
     torch.cuda.empty_cache()
     if not twin <= SERVE_TWIN_TOL:
         raise AssertionError(f"serve 12b twin: CUDA != CPU ({twin:.3e})")
-    return dict(model=row, launches=counts["sm90"])
+    return dict(model=row, launches=counts["sm90"], measured=measured)
 
 
 def serve_phase(dev) -> dict:
@@ -5001,7 +5012,7 @@ def train_full_phase(dev) -> dict:
         f"the scan backward's recompute and masked blocks)")
     common = dict(arch=TRAIN_ARCH_FULL, layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
                   batch=TRAIN_BATCH, mesh=TRAIN_MESH, steps=TRAIN_STEPS)
-    runs, launched = {}, 0
+    runs, launched, measured = {}, 0, {}
     t_modes = time.perf_counter()
     for name, kw in TRAIN_MODES.items():
         gc.collect()
@@ -5034,6 +5045,7 @@ def train_full_phase(dev) -> dict:
             f"({per_step} a step: {TRAIN_LAYERS} layers, forward and remat "
             f"recompute); run {wall:.2f} s with init")
         runs[name] = losses
+        measured[name] = dict(step_s=warm, peak=peak)
     log(f"[time] 13b four modes {time.perf_counter() - t_modes:.1f} s")
     gaps = {"ddp picsou vs ddp ata": max(
                 abs(a - b) for a, b in zip(runs["ddp picsou"],
@@ -5106,7 +5118,7 @@ def train_full_phase(dev) -> dict:
     row = _train_shape_attention(cfg, dev)
     log(f"[time] 13b twin {t1 - t0:.1f} s, kernel at the step's shape "
         f"{time.perf_counter() - t1:.1f} s")
-    return dict(train=row, launches=launched)
+    return dict(train=row, launches=launched, measured=measured)
 
 
 def train_phase(dev) -> dict:
@@ -5120,6 +5132,106 @@ def train_phase(dev) -> dict:
     log(f"[time] 13b training {TRAIN_ARCH_FULL} {time.perf_counter() - t0:.1f}"
         f" s")
     return dict(full, launches_f32=f32)
+
+
+# ------------------------------------------------------------ phase 14
+# phase 14, the dry run: StepBundle.lower() counts a step on meta
+# tensors (roofline.count: FlopCounterMode's formulas, uniform loops as
+# trip count x one iteration). (a) holds that count of 13b's step to
+# FlopCounterMode over one real step of the same bundle on the card
+# (impl "scan": the kernel's FLOPs are no aten op's); (b) and (c) hold
+# the counts of 13b's step and 12b's prefill to their measured times and
+# peaks (phases 12b and 13b run them; nothing is timed again here).
+DRYRUN_SERVE_MESH = "1x1"          # 12b serves on the card, no mesh
+
+
+def _count_line(what: str, low, mf: float, step_s: float, peak: int):
+    share = low.flops / step_s / BF16_FLOPS
+    tflop = low.flops / 1e12
+    log(f"[dryrun 14] {what}: counted {low.flops:,} FLOPs ({tflop:.3f} "
+        f"TFLOP; model_flops {mf / 1e12:.3f} TFLOP, useful "
+        f"{mf / low.flops:.3f}), {low.bytes:,} bytes moved unfused "
+        f"({low.bytes / 1e9:.2f} GB), counted in {low.host_s:.2f} s on the "
+        f"host; over the measured warm {step_s:.4f} s: "
+        f"{low.flops / step_s / 1e12:.1f} TFLOP/s, {share:.1%} of 989 "
+        f"TFLOP/s bf16; argument bytes a position "
+        f"{low.argument_bytes:,.0f} ({low.argument_bytes / 2**30:.2f} GiB) "
+        f"against the measured peak {peak:,} ({peak / 2**30:.2f} GiB)")
+    if not (mf <= low.flops and share <= 1.0
+            and low.argument_bytes <= peak):
+        raise AssertionError(f"dryrun 14 {what}: model_flops {mf:.4e} <= "
+                             f"counted {low.flops:.4e}, share {share:.3f} "
+                             f"<= 1 and argument bytes "
+                             f"{low.argument_bytes:.4e} <= peak {peak:,} "
+                             f"must all hold")
+
+
+def dryrun_phase(dev, served: dict, trained: dict) -> None:
+    """14 (a)-(c): see the module docstring."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.roofline import model_flops
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH_FULL),
+                              n_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    low = steps.build_train_step(cfg, tmesh.parse_mesh(TRAIN_MESH, "meta"),
+                                 shape, impl="scan").lower()
+
+    # (a) one real step of the same bundle on the card, counted
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = steps.build_train_step(cfg, tmesh.parse_mesh(TRAIN_MESH, dev),
+                                    shape, impl="scan")
+    params = M.init_model(cfg, TRAIN_SEED, dev)
+    batch = {"tokens": torch.from_numpy(SyntheticTokens(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=17).batch_at(0)["tokens"]).to(dev)}
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        _, _, metrics = bundle(params, opt, batch)
+        loss = float(metrics["loss"])
+    real_s = time.perf_counter() - t0
+    real = int(fc.get_total_flops())
+    real_peak = torch.cuda.max_memory_allocated()
+    del params, opt, bundle, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[dryrun 14] (a) 13b's pjit step ({cfg.name}, {TRAIN_LAYERS} "
+        f"layers, B {TRAIN_BATCH} x {TRAIN_SEQ}, mesh {TRAIN_MESH}, impl "
+        f"scan): meta count {low.flops:,} FLOPs in {low.host_s:.2f} s on "
+        f"the host; FlopCounterMode over one real step on the card "
+        f"{real:,} FLOPs (loss {loss:.5f}, {real_s:.2f} s with the "
+        f"counter, peak {real_peak / 2**30:.2f} GiB); equal: "
+        f"{real == low.flops}")
+    if real != low.flops or not math.isfinite(loss):
+        raise AssertionError(f"dryrun 14 (a): the meta count {low.flops:,} "
+                             f"is not the real step's {real:,} (loss "
+                             f"{loss})")
+
+    # (b), (c) against the times and peaks phases 13b and 12b measured
+    pjit = trained["measured"]["pjit"]
+    _count_line("(b, c) 13b pjit step", low, model_flops(cfg, shape),
+                pjit["step_s"], pjit["peak"])
+    s_cfg = get_config(SERVE_ARCH)
+    b, plen, _ = SERVE_SHAPE
+    p_shape = ShapeSpec("prefill", plen, b, "prefill")
+    p_low = steps.build_prefill_step(
+        s_cfg, tmesh.parse_mesh(DRYRUN_SERVE_MESH, "meta"), p_shape).lower()
+    _count_line(f"(b, c) 12b prefill ({s_cfg.name}, B {b} x {plen})", p_low,
+                model_flops(s_cfg, p_shape), served["measured"]["prefill_s"],
+                served["measured"]["peak"])
 
 
 def build_all() -> dict:
@@ -5301,6 +5413,9 @@ def main() -> int:
     t0 = time.perf_counter()
     trained = train_phase(dev)
     log(f"[time] training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_phase(dev, served, trained)
+    log(f"[time] dry-run phase {time.perf_counter() - t0:.1f} s")
 
     # the main path's launches: the full-size runs, dense and windowed,
     # the sweep, the same runs with metrics on, the full-width topologies

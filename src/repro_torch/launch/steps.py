@@ -9,6 +9,9 @@ from ``ShapeDtypeStruct`` trees, so that its dry run can lower every
 port's mesh, held on one card (``launch.mesh``): a step computes on whole
 tensors on the mesh's device, and its bundle records the shardings the
 planner gives (``models.sharding.spec_for``) beside it.
+``StepBundle.lower()`` is the counterpart of JAX's lowering: it counts
+the step on those ``meta`` inputs (``roofline.lowered``), allocating
+nothing.
 """
 
 from __future__ import annotations
@@ -60,13 +63,22 @@ def param_shardings(cfg: ModelConfig, mesh, rules=None):
 @dataclasses.dataclass
 class StepBundle:
     """A step with its declared inputs: ``in_shapes`` are ``meta`` tensor
-    trees, ``in_shardings`` their NamedShardings on ``mesh``."""
+    trees, ``in_shardings`` their NamedShardings on ``mesh``, ``shape``
+    the cell it was built for."""
 
     fn: Any
     in_shapes: Tuple[Any, ...]
     in_shardings: Tuple[Any, ...]
     mesh: Optional[Any] = None
     rules: Optional[Dict[str, Any]] = None
+    shape: Optional[ShapeSpec] = None
+
+    def lower(self):
+        """The step counted on its ``meta`` inputs: a
+        ``roofline.lowered.Lowered`` with ``cost_analysis()``,
+        ``memory_analysis()`` and the derived collectives."""
+        from ..roofline.lowered import lower
+        return lower(self)
 
     def __call__(self, *args):
         return self.fn(*args)
@@ -117,7 +129,7 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
     return StepBundle(fn=train_step, in_shapes=(p_shapes, o_shapes,
                                                 b_shapes),
                       in_shardings=(p_shard, o_shard, b_shard),
-                      mesh=mesh, rules=rules)
+                      mesh=mesh, rules=rules, shape=shape)
 
 
 def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
@@ -135,7 +147,7 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
 
     return StepBundle(fn=prefill_step, in_shapes=(p_shapes, b_shapes),
                       in_shardings=(p_shard, b_shard), mesh=mesh,
-                      rules=rules)
+                      rules=rules, shape=shape)
 
 
 def build_decode_step(cfg: ModelConfig, mesh,
@@ -146,7 +158,9 @@ def build_decode_step(cfg: ModelConfig, mesh,
     b_shard = _shardings_from(mesh, b_shapes, b_names, rules)
 
     @torch.no_grad()
-    def serve_step(params, caches, token, pos):
+    def serve_step(params, caches, token, pos: int):
+        # the caller gives the position as a Python int (``lower`` gives
+        # ``seq_len - 1``): a meta tensor has no value to read
         return M.decode_step(params, cfg, caches, token, int(pos))
 
     return StepBundle(
@@ -155,7 +169,7 @@ def build_decode_step(cfg: ModelConfig, mesh,
                    b_shapes["pos"]),
         in_shardings=(p_shard, b_shard["caches"], b_shard["token"],
                       b_shard["pos"]),
-        mesh=mesh, rules=rules)
+        mesh=mesh, rules=rules, shape=shape)
 
 
 def build_step(cfg: ModelConfig, mesh, shape: ShapeSpec,

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
+from ..roofline import count
 
 __all__ = ["attention", "attention_scan", "attention_triangular",
            "attention_decode", "update_kv_cache", "scan_backward", "IMPLS"]
@@ -112,13 +113,16 @@ def _scan_block(qr, kr, vr, qi: int, blocks, skv: int, causal: bool,
     carry = (m, torch.zeros_like(m),
              torch.zeros((b, n_kv, g, bq, d), dtype=torch.float32,
                          device=dev))
-    for kv_i in range(nkv):
+
+    def body(kv_i, carry, shared):
+        qb, kr, vr = shared
         k_pos = kv_i * bkv + torch.arange(bkv, device=dev)
         s = torch.einsum("bqkgd,bskd->bkgqs", qb, kr[:, kv_i]).float()
         s = s + _mask(q_pos, k_pos, causal, window)
         s = torch.where(k_pos < skv, s, NEG_INF)     # padded kv tail
-        carry = _online_update(carry, s, vr[:, kv_i].float())
-    _, l, acc = carry
+        return _online_update(carry, s, vr[:, kv_i].float()), None
+
+    (_, l, acc), _ = count.loop(nkv, body, carry, (qb, kr, vr))
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
@@ -128,9 +132,13 @@ def attention_scan(q, k, v, *, causal: bool, window: int = 0,
     b, sq, h, d = q.shape
     qr, kr, vr, blocks = _scan_operands(q, k, v, block_q, block_kv)
     bq, nq = blocks[0], blocks[2]
-    outs = [_scan_block(qr, kr, vr, qi, blocks, k.shape[1], causal, window)
-            for qi in range(nq)]
-    out = torch.stack(outs, dim=1)                   # (B,nq,KV,G,bq,D)
+
+    def body(qi, carry, shared):
+        return carry, _scan_block(*shared, qi, blocks, k.shape[1], causal,
+                                  window)
+
+    _, out = count.loop(nq, body, (), (qr, kr, vr), dim=1)
+    # out: (B,nq,KV,G,bq,D)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * bq, h, d)
     return out[:, :sq].to(q.dtype)
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..roofline import count
 from .attention import attention, attention_decode, update_kv_cache
 from .params import PD
 
@@ -172,7 +173,9 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
 def _aux_loss(logits, idx, e: int):
     """Switch-style load balancing: E * sum(mean prob * routed share)."""
     me = torch.softmax(logits, dim=-1).reshape(-1, e).mean(dim=0)
-    ce = (torch.bincount(idx.reshape(-1), minlength=e).float()
+    # the routed counts as an int64 one-hot sum: bincount's exact values,
+    # and it runs on meta tensors too
+    ce = (F.one_hot(idx.reshape(-1), e).sum(dim=0).float()
           / idx.numel())
     return e * torch.sum(me * ce)
 
@@ -270,16 +273,22 @@ def _token_shift(x, x_prev):
     return torch.cat([x_prev[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
 
 
-def _time_steps(step, state, inputs):
-    """Run ``step(state, inputs at t) -> (state, y_t)`` over the time axis
-    (dim 0 of every input); returns (state, ys stacked on dim 0). The JAX
-    package's blocked scan (``rwkv_scan_block``) runs the same steps in
-    the same order, so one loop serves every block size."""
-    ys = []
-    for t in range(inputs[0].shape[0]):
-        state, y = step(state, tuple(a[t] for a in inputs))
-        ys.append(y)
-    return state, torch.stack(ys)
+def _time_steps(step, state, inputs, params=()):
+    """Run ``step(state, inputs at t, *params) -> (state, y_t)`` over the
+    time axis (dim 0 of every input); returns (state, ys stacked on dim
+    0). The JAX package's blocked scan (``rwkv_scan_block``) runs the same
+    steps in the same order, so one loop serves every block size. The
+    loop is ``count.loop``'s, which a dry run's counter scales."""
+    n_in = len(inputs)
+
+    def body(t, carry, shared):
+        state, y = step(carry[0], tuple(a[t] for a in shared[:n_in]),
+                        *shared[n_in:])
+        return (state,), y
+
+    (state,), ys = count.loop(inputs[0].shape[0], body, (state,),
+                              tuple(inputs) + tuple(params))
+    return state, ys
 
 
 def rwkv_time_mix(p, x, cfg: ModelConfig, state, x_prev):
@@ -306,14 +315,14 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, state, x_prev):
     w = torch.exp(w_log).reshape(b, s, h, hd)           # decay in (0,1)
     u = p["u"].float()
 
-    def step(S, inp):
+    def step(S, inp, u):
         rt, kt, vt, wt = inp                            # (B,H,hd) each
         kv = torch.einsum("bhk,bhv->bhkv", kt, vt)
         yt = torch.einsum("bhk,bhkv->bhv", rt, S + u[None, :, :, None] * kv)
         return wt[..., None] * S + kv, yt
 
     new_state, ys = _time_steps(step, state.float(), tuple(
-        a.permute(1, 0, 2, 3).float() for a in (r, k, v, w)))
+        a.permute(1, 0, 2, 3).float() for a in (r, k, v, w)), (u,))
     y = ys.permute(1, 0, 2, 3).reshape(b, s, d).to(x.dtype)
     y = rmsnorm(y, p["ln_x"].to(x.dtype), cfg.norm_eps) * g
     out = torch.einsum("bsd,de->bse", y, p["wo"].to(x.dtype))
@@ -363,7 +372,7 @@ def ssm_fwd(p, x, cfg: ModelConfig, state):
     cc = torch.einsum("bsd,dhn->bshn", x, p["wC"].to(x.dtype))
     a = -torch.exp(p["a_log"].float())                  # (H,st), < 0
 
-    def step(hstate, inp):
+    def step(hstate, inp, a):
         xt, dtt, bt, ct = inp
         decay = torch.exp(dtt[..., None] * a[None])     # (B,H,st)
         upd = torch.einsum("bhe,bhn->bhen", xt, bt * dtt[..., None])
@@ -372,7 +381,8 @@ def ssm_fwd(p, x, cfg: ModelConfig, state):
 
     new_state, ys = _time_steps(step, state.float(), (
         xh.permute(1, 0, 2, 3).float(), dt.permute(1, 0, 2),
-        bb.permute(1, 0, 2, 3).float(), cc.permute(1, 0, 2, 3).float()))
+        bb.permute(1, 0, 2, 3).float(), cc.permute(1, 0, 2, 3).float()),
+        (a,))
     y = ys.permute(1, 0, 2, 3)
     y = y + xh.float() * p["skip"].float()[None, None, :, None]
     out = torch.einsum("bshe,hed->bsd", y.to(x.dtype), p["wo"].to(x.dtype))

@@ -28,7 +28,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig, ShapeSpec
-from ..tree_util import tree_map
+from ..roofline import count
+from ..tree_util import tree_flatten, tree_map, tree_unflatten
 from . import blocks as B
 from .params import (PD, init_params, meta, names_tree, resolve_device,
                      shape_tree, torch_dtype)
@@ -195,8 +196,9 @@ def _remat(fn, cfg: ModelConfig):
 def _run_segment(seg_p, x, cfg: ModelConfig, seg: Segment, *, positions,
                  memory, impl, return_cache: bool):
     """Returns (x, aux, caches), caches stacked over the segment's
-    layers. The layers of a stacked segment run under ``_remat``."""
-    def one(p, x):
+    layers. The layers of a stacked segment run under ``_remat``, as a
+    ``count.loop`` (which a dry run's counter scales)."""
+    def one(p, x, memory):
         carry = _zero_carry(cfg, seg.kind, x.shape[0], x.device)
         xx, aux, nc = B.block_fwd(p, x, cfg, seg.kind, positions=positions,
                                   memory=memory, impl=impl, carry=carry)
@@ -205,15 +207,20 @@ def _run_segment(seg_p, x, cfg: ModelConfig, seg: Segment, *, positions,
         return xx, aux, cache
 
     if seg.count == 1:
-        return one(seg_p, x)
+        return one(seg_p, x, memory)
     layer = _remat(one, cfg)
+    leaves, treedef = tree_flatten(seg_p)
+
+    def body(i, carry, shared):
+        x, aux = carry
+        p = _layer(tree_unflatten(treedef, list(shared[:-1])), i)
+        x, a, cache = layer(p, x, shared[-1])
+        return (x, aux + a), cache
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = []
-    for i in range(seg.count):
-        x, a, cache = layer(_layer(seg_p, i), x)
-        aux = aux + a
-        caches.append(cache)
-    return x, aux, _stack(caches)
+    (x, aux), caches = count.loop(seg.count, body, (x, aux),
+                                  tuple(leaves) + (memory,))
+    return x, aux, caches
 
 
 def _build_cache(p, new_carry, x_in, cfg: ModelConfig, kind: str, memory):

@@ -66,6 +66,10 @@ def tree_flatten_with_path(tree) -> Tuple[List[Tuple[str, Any]], TreeDef]:
                                          for k, c in kids))
 
     treedef = walk(tree, ())
+    # ``walk`` refers to itself through its closure: clear that cell, or
+    # the cycle keeps ``out`` (every leaf) alive until a garbage
+    # collection, and a training step's old parameters with it
+    del walk
     return out, treedef
 
 
@@ -94,6 +98,7 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
         return td.kind(*kids)                     # a NamedTuple
 
     out = build(treedef)
+    del build                                   # the cycle: see above
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree has")
     return out
@@ -118,6 +123,7 @@ def tree_flatten_up_to(treedef: TreeDef, tree) -> List[Any]:
             walk(child_td, child)
 
     walk(treedef, tree)
+    del walk                                    # the cycle: see above
     return out
 
 

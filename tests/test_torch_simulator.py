@@ -262,7 +262,9 @@ def test_run_without_device_raises_without_cuda(monkeypatch):
 # ------------------------------------ (h) the port stands alone from JAX
 def _port_sources():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 5, examples
+    return files + examples + [REPO / "chip_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
