@@ -1,6 +1,13 @@
 """The port's dry run (``repro_torch.launch.dryrun``) and its pieces.
 
-Held here: a smoke cell's ``run_cell`` allocates nothing off ``meta``
+Held here: every smoke cell's FLOPs (``StepBundle.lower()``) equal the
+HLO dot FLOPs of the JAX step exactly, plus the difference
+``torch_dryrun_parity.port_minus_jax`` explains op by op (zero for the
+train steps of eight configs), and its argument bytes equal
+``memory_analysis().argument_size_in_bytes`` plus the arguments that
+JAX's jit drops as unused (``torch_dryrun_parity.jax_prunes``; none in
+a train step); controls, a dropped layer or a loop counted once without
+its trip count, break that equality. A smoke cell's ``run_cell`` allocates nothing off ``meta``
 (a dispatch mode raises on any other tensor over 1 MB), its record keeps
 the JAX package's keys and states its bases, a resume skips this
 backend's cached cells and never the JAX package's, full-size cells on
@@ -27,8 +34,13 @@ from repro_torch.models.sharding import NamedSharding, P
 from repro_torch.roofline import inspect as tinspect
 from repro_torch.roofline.collectives import (BASIS, derive_collectives,
                                               ring_wire_bytes)
-from torch_dryrun_parity import (WIRE_CELLS, jax_mesh_cells,
-                                 port_mesh_cell)
+from repro_torch.configs import list_configs
+from repro_torch.roofline import count
+from torch_dryrun_parity import (WIRE_CELLS, jax_counts, jax_mesh_cells,
+                                 jax_prunes, port_lowered, port_mesh_cell,
+                                 port_minus_jax)
+
+ARCHS = list_configs()
 
 # the JAX package's record keys, less compile_s
 JAX_KEYS = {"arch", "shape", "mesh", "impl", "tag", "status", "lower_s",
@@ -213,3 +225,47 @@ def test_mesh_cells_match_jax_argument_bytes():
         low = port_mesh_cell(arch, kind)
         assert low.argument_bytes == arg, (arch, kind)
         assert wire > 0 and low.collective_breakdown()["bytes.total"] > 0
+
+
+# ------------------------------------------- parity with the HLO count
+# decode at four configs: no difference, a cross layer's unused k and v
+# (llama, whisper), and arguments jit drops (rwkv6, whisper)
+HLO_CELLS = ([(a, k) for a in ARCHS for k in ("train", "prefill")]
+             + [(a, "decode") for a in ("granite-8b", "llama-3.2-vision-11b",
+                                        "rwkv6-7b", "whisper-small")])
+
+
+@pytest.mark.parametrize("arch,kind", HLO_CELLS)
+def test_step_flops_equal_jax_hlo_dots(arch, kind):
+    jax_flops, jax_args = jax_counts(arch, kind)
+    low = port_lowered(arch, kind)
+    assert low.flops == jax_flops + port_minus_jax(arch, kind)
+    assert low.argument_bytes == jax_args + jax_prunes(arch, kind)
+    if kind == "train" and arch not in ("rwkv6-7b", "hymba-1.5b"):
+        assert port_minus_jax(arch, kind) == 0
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "rwkv6-7b",
+                                  "mixtral-8x22b"])
+def test_a_dropped_layer_breaks_the_parity(arch):
+    jax_flops, _ = jax_counts(arch, "train")
+    want = jax_flops + port_minus_jax(arch, "train")
+    assert port_lowered(arch, "train").flops == want
+    cut = get_config(arch).smoke().n_layers - 1
+    assert port_lowered(arch, "train", n_layers=cut).flops != want
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "hymba-1.5b"])
+def test_a_loop_counted_once_breaks_the_parity(arch, monkeypatch):
+    """The middle iterations counted once instead of n - 2 times: the
+    count falls short of the HLO's."""
+    jax_flops, _ = jax_counts(arch, "train")
+    want = jax_flops + port_minus_jax(arch, "train")
+    times = count.Counter.times.__wrapped__
+
+    def once(self, n):
+        return times(self, 1)
+
+    monkeypatch.setattr(count.Counter, "times",
+                        count.contextlib.contextmanager(once))
+    assert port_lowered(arch, "train").flops < want

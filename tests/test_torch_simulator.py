@@ -32,6 +32,17 @@ from repro_torch.core import protocols as tprot
 from repro_torch.core import simulator as tsim
 from test_windowed import FIXTURES, IDS, METRICS, OUTPUTS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small tensors: torch's intra-op threads only cost, and under a
+    parallel test run they compete with the other workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 BFT1 = JRSMConfig.bft(1)
 
