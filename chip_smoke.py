@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port of the PICSOU simulator on one CUDA card.
 
-    python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py          # from any directory: the checkout's
+                                   # src/ is put on sys.path
 
 Phases, each of which raises on failure (exit code non-zero):
 
@@ -242,16 +243,18 @@ Phases, each of which raises on failure (exit code non-zero):
    raise ``SanitizerError``. 10b at full width: BFT f = 6 both sides,
    window 4, phi 32, 32-round chunks, K = 8, ``window_slots="auto"``
    (W = 7,616), a diurnal link (``ArrivalProcess(kind="diurnal",
-   rate=64, period=512, amplitude=0.5, seed=0)``) over 1,048,576
-   messages (16,611 rounds) and 262,144 (4,327), each session cold under
+   rate=64, period=512, amplitude=0.5, seed=0)``) over 524,288
+   messages (8,411 rounds) and 131,072 (2,275), each session cold under
    ``Measured`` and tracemalloc: all delivered, no problem, launches 2 x
-   rounds + rotating chunks; at 1,048,576 a ``run_simulation`` of the
+   rounds + rotating chunks; at 524,288 a ``run_simulation`` of the
    identical spec after the session captures 0, issues the session's
    dispatches and host syncs, and its post-hoc ``RunReport`` validates
    with the live histogram and percentiles bit for bit. Flatness (P1
-   for a resident stream): each session's peak device memory less its
-   padded schedule (12 x (M + W) bytes) equal at both horizons within
-   ``FLAT_DEVICE_MIB``, and the 1,048,576 session's host peak inside
+   for a resident stream): each session's peak device memory less what
+   its cached program sets hold by design (the padded schedules, 12 x
+   (M + W) bytes at each width, and the captured span programs' output
+   buffers, k chunk queues each) equal at both horizons within
+   ``FLAT_DEVICE_MIB``, and the 524,288 session's host peak inside
    ``run()`` under ``FLAT_HOST_SHARE`` of the batch run's. Each logs its
    wall, rounds/s and messages/s (under tracemalloc), captures and their
    host s, device time inside replays, peak device and host memory.
@@ -315,6 +318,12 @@ Phases, each of which raises on failure (exit code non-zero):
    gradient leaf, and AdamW's m and v after the second step, each within
    1e-4 of the leaf's max or, where larger, twice the CPU's own f32
    distance from an f64 run of the same steps; the parameters logged),
+   the card's AdamW update held: the CPU's moving-step update arguments
+   (its gradients, the parameters and AdamW state of the step before)
+   carried to the card through ``launch.steps.train_update``, the call
+   ``build_train_step`` makes, give the CPU step's parameters, m and v
+   within 1e-6 of a leaf's max (``TRAIN_UPDATE_TOL``), and the same
+   update with beta2 0.999 must break that on the parameters and on v;
    the f32 kernel launched twice an attention layer of a stacked segment
    (the forward and remat's recompute) and once elsewhere a step; on the
    models' own q, k, v, dO (every attention call of a remat-off step)
@@ -3311,11 +3320,19 @@ def replay_full_phase(f: int = 6, m: int = SWEEP_M,
 # 133 a round), over two horizons
 STREAM_PROCESS = dict(kind="diurnal", rate=64.0, period=512, amplitude=0.5,
                       seed=0)
-STREAM_HORIZONS = (1_048_576, 262_144)
-# P1 for a resident stream: the session's peak device memory less its
-# padded schedule (12 bytes a message and a window slot, O(M) by design)
-# equal at both horizons within FLAT_DEVICE_MIB; the session's host peak
-# inside run() under FLAT_HOST_SHARE of the batch run's on the same spec
+STREAM_HORIZONS = (524_288, 131_072)
+# P1 for a resident stream: the session's peak device memory less what
+# its cached program sets hold by design, equal at both horizons within
+# FLAT_DEVICE_MIB; the session's host peak inside run() under
+# FLAT_HOST_SHARE of the batch run's on the same spec. By design: each
+# set's padded schedule, 12 bytes a message and a window slot at its
+# width (O(M)), and its captured span programs' output buffers, k chunk
+# queues each (O(K * W)). The peak falls in a capture: the warm-up of the
+# horizon's tail span (its rotating chunks mod K: 6 at 524,288, 7 at
+# 131,072) holds that span's chunk queues beside the buffers of the
+# programs captured before it, so the peak follows the tail by one chunk
+# queue a chunk (1.27 MiB at W = 7,616), and taking off every program's
+# buffers takes that off (tools/stream_memory_trace.py traces it)
 FLAT_DEVICE_MIB = 1.0
 FLAT_HOST_SHARE = 1 / 8
 
@@ -3517,9 +3534,19 @@ class _RefuseSink:
         raise AssertionError("the refused session reached its final flush")
 
 
+def _by_design() -> tuple:
+    """What the cached program sets hold by design, in bytes: (their
+    padded schedules, their captured programs' output buffers)."""
+    from repro_torch.core import graphs
+    sets = graphs.cached_sets()
+    return (sum(t.numel() * t.element_size() for ps in sets
+                for t in ps.keep[1].sched),
+            sum(ps.output_nbytes() for ps in sets))
+
+
 def _stream_full_session(horizon: int, launches):
     """One cold 10b session under ``Measured`` and tracemalloc; (session,
-    result, Measured, host peak bytes)."""
+    result, Measured, host peak bytes, ``_by_design()`` after it)."""
     import tracemalloc
 
     from repro_torch.core import RSMConfig, SimConfig
@@ -3544,6 +3571,7 @@ def _stream_full_session(horizon: int, launches):
             tracemalloc.stop()
 
     run_m = Measured(run)
+    held = _by_design()
     res, spec = run_m.result, sess.spec
     _count_full(launches, run_m, spec, f"stream {horizon}")
     if res.problems or res.delivered != horizon or res.retired != horizon:
@@ -3564,7 +3592,7 @@ def _stream_full_session(horizon: int, launches):
         f"chunks drained, {res.live.total_rows} live rows; percentiles "
         f"{res.percentiles()}; {tracer.count('drain_wait')} drain waits, "
         f"drain overlap {tracer.drain_overlap_ratio():.4f}")
-    return sess, res, run_m, host[0]
+    return sess, res, run_m, host[0], held
 
 
 def _count_full(launches, run_m, spec, what: str) -> None:
@@ -3587,8 +3615,9 @@ def stream_full_phase() -> list:
     from repro_torch.obs.report import report_from_results
     from repro_torch.obs.tracer import SpanTracer, tracing
     launches = [0, 0]
-    sess, res, run_m, host = _stream_full_session(STREAM_HORIZONS[0],
-                                                  launches)
+    t_start = time.perf_counter()
+    sess, res, run_m, host, held = _stream_full_session(STREAM_HORIZONS[0],
+                                                        launches)
     spec = sess.spec
     batch_tracer = SpanTracer()
     batch_host = [0]
@@ -3628,22 +3657,29 @@ def stream_full_phase() -> list:
         f"validates and its histogram and percentiles "
         f"{post.percentiles()} == the live ones bit for bit")
     del batch_m, report
-    peaks = {STREAM_HORIZONS[0]: (run_m.peak_mib, spec.m, spec.window_slots)}
-    sess2, res2, run2, host2 = _stream_full_session(STREAM_HORIZONS[1],
-                                                    launches)
-    peaks[STREAM_HORIZONS[1]] = (run2.peak_mib, sess2.spec.m,
-                                 sess2.spec.window_slots)
-    flat = {h: p - 12 * (m + w) / 2 ** 20 for h, (p, m, w) in peaks.items()}
+    peaks = {STREAM_HORIZONS[0]: (run_m.peak_mib, held, res)}
+    sess2, res2, run2, host2, held2 = _stream_full_session(
+        STREAM_HORIZONS[1], launches)
+    peaks[STREAM_HORIZONS[1]] = (run2.peak_mib, held2, res2)
+    mib = 2 ** 20
+    flat = {h: p - (sched + outs) / mib
+            for h, (p, (sched, outs), _) in peaks.items()}
     spread = max(flat.values()) - min(flat.values())
-    log(f"[stream flat] device: peak less the padded schedule "
-        + ", ".join(f"{h}: {p:.3f} - {12 * (m + w) / 2 ** 20:.3f} = "
-                    f"{flat[h]:.3f} MiB" for h, (p, m, w) in peaks.items())
-        + f"; spread {spread:.3f} MiB (limit {FLAT_DEVICE_MIB} MiB); host: "
-        f"the session's peak inside run() {host / 2 ** 20:.3f} MiB at "
-        f"{STREAM_HORIZONS[0]} and {host2 / 2 ** 20:.3f} MiB at "
-        f"{STREAM_HORIZONS[1]}, the batch run's {batch_host[0] / 2 ** 20:.3f}"
-        f" MiB ({host / batch_host[0]:.4f} of it; limit "
-        f"{FLAT_HOST_SHARE:.3f})")
+    log(f"[stream flat] device: peak less the padded schedules and the "
+        f"span programs' output buffers "
+        + ", ".join(f"{h}: {p:.4f} - {sched / mib:.4f} - {outs / mib:.4f} "
+                    f"= {flat[h]:.4f} MiB (final W {r.final_window_slots})"
+                    for h, (p, (sched, outs), r) in peaks.items())
+        + f"; spread {spread:.4f} MiB (limit {FLAT_DEVICE_MIB} MiB; less "
+        f"the schedules alone: "
+        + ", ".join(f"{p - sched / mib:.4f}"
+                    for p, (sched, _), _ in peaks.values())
+        + f" MiB); host: the session's peak inside run() "
+        f"{host / mib:.3f} MiB at {STREAM_HORIZONS[0]} and "
+        f"{host2 / mib:.3f} MiB at {STREAM_HORIZONS[1]}, the batch run's "
+        f"{batch_host[0] / mib:.3f} MiB ({host / batch_host[0]:.4f} of it; "
+        f"limit {FLAT_HOST_SHARE:.3f}); 10b "
+        f"{time.perf_counter() - t_start:.1f} s")
     if spread > FLAT_DEVICE_MIB or host >= FLAT_HOST_SHARE * batch_host[0]:
         raise AssertionError("stream: device or host memory not flat")
     return launches
@@ -4498,8 +4534,9 @@ TRAIN_TWIN = (1, 128)
 # second step are logged beside that limit, not held: AdamW moves an
 # entry whose gradient is f32 noise (a zero-init leaf such as rwkv6's w0
 # or qwen2's key bias) by up to lr on either device, whatever its size;
-# phase 11c holds AdamW's update on the card. The kernel route's
-# dQ, dK, dV against the scan route's: 1e-6 of each one's max; a backward
+# the card's update itself is held on the CPU's inputs (below). The
+# kernel route's dQ, dK, dV against the scan route's: 1e-6 of each
+# one's max; a backward
 # recomputed with the causal mask off must break it; its outputs at most
 # TRAIN_OUT_RATIO times as far from an f64 oracle as the plain version's
 # (max |difference| / max |oracle|). At the models' scores (hundreds) the
@@ -4514,6 +4551,13 @@ TRAIN_TWIN = (1, 128)
 # above 0 (the compressor ran; int8 moves each gradient entry by at most
 # max |leaf| / 254 a step, error feedback carrying the rest forward), a
 # restart against the uninterrupted run 2e-3
+# The card's AdamW update on the CPU's own moving-step inputs (carried
+# across): parameters, m and v within 1e-6 of a leaf's largest |CPU
+# value|, phase 11c's limit (elementwise f32 arithmetic beside one global
+# norm summed in another order); the same update with beta2 0.999 for
+# 0.95 must break it on the parameters and on v
+TRAIN_UPDATE_TOL = 1e-6
+TRAIN_UPDATE_FAULT_B2 = 0.999
 TRAIN_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-6
 TRAIN_SYNC_TOL = 1e-4
@@ -4572,11 +4616,29 @@ def _smoke_train_inputs(cfg, i: int, dev):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def _train_steps_on(cfg, params, batch, dev, counted: list):
+@contextlib.contextmanager
+def recording_update(calls: list):
+    """``launch.steps.train_update``, the update ``build_train_step``'s
+    step makes after its gradients, keeping each call's arguments."""
+    from repro_torch.launch import steps
+    real = steps.train_update
+
+    def kept(*args):
+        calls.append(args)
+        return real(*args)
+    steps.train_update = kept
+    try:
+        yield
+    finally:
+        steps.train_update = real
+
+
+def _train_steps_on(cfg, params, batch, dev, counted: list, moving=None):
     """value_and_grad, then two build_train_step steps from a fresh AdamW
     state with warmup 1 (the lr scale is 0 at step 0 and whole at step 1),
     on ``dev``: (loss, {"grads", "params", "m", "v": leaves}). The steps'
-    attention launches are appended to ``counted``."""
+    attention launches are appended to ``counted``, and the arguments of
+    the second (moving) step's update to ``moving`` when given."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import mesh as tmesh
     from repro_torch.launch import steps
@@ -4592,13 +4654,57 @@ def _train_steps_on(cfg, params, batch, dev, counted: list):
         warmup=1, total_steps=10)
     _zero_attention_counts()
     p1, s1, _ = bundle(p, adamw_init(p), b)
-    p2, s2, _ = bundle(p1, s1, b)
+    with recording_update([] if moving is None else moving):
+        p2, s2, _ = bundle(p1, s1, b)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     counted.append(_attention_counts())
     return float(loss), {"grads": tree_leaves(grads),
                          "params": tree_leaves(p2), "m": tree_leaves(s2.m),
                          "v": tree_leaves(s2.v)}
+
+
+def card_update(args, dev, **faults) -> dict:
+    """``train_update`` on ``dev`` on the arguments ``args`` of a recorded
+    call (carried there), its config changed by ``faults``:
+    {"params", "m", "v": leaves}."""
+    from repro_torch.launch import steps
+    from repro_torch.tree_util import tree_leaves, tree_map
+    opt_cfg, grads, params, state, warmup, total = args
+    p, s = steps.train_update(
+        dataclasses.replace(opt_cfg, **faults),
+        *(tree_map(lambda a: a.to(dev), t) for t in (grads, params, state)),
+        warmup, total)
+    return {"params": tree_leaves(p), "m": tree_leaves(s.m),
+            "v": tree_leaves(s.v)}
+
+
+def hold_update(args, want: dict, dev, what: str) -> str:
+    """The card's AdamW update in the training step, held: the CPU's
+    moving step's update arguments (its gradients, the parameters and
+    AdamW state of the step before) carried to the card through the same
+    call, and the parameters, m and v, leaf by leaf, within
+    TRAIN_UPDATE_TOL of the leaf's largest |CPU value| of the CPU step's
+    own. The control, the update with beta2 = TRAIN_UPDATE_FAULT_B2, must
+    break the limit on the parameters and on v."""
+    errs = {}
+    for label, faults in (("update", {}),
+                          ("control", dict(b2=TRAIN_UPDATE_FAULT_B2))):
+        got = card_update(args, dev, **faults)
+        errs[label] = {key: max(_rel64(g, w) for g, w in zip(got[key],
+                                                              want[key]))
+                       for key in ("params", "m", "v")}
+    if max(errs["update"].values()) > TRAIN_UPDATE_TOL or not min(
+            errs["control"]["params"], errs["control"]["v"]) > \
+            TRAIN_UPDATE_TOL:
+        raise AssertionError(f"train 13a {what}: the card's AdamW update "
+                             f"must hold the CPU's within "
+                             f"{TRAIN_UPDATE_TOL:g} and its control break "
+                             f"it on the parameters and v: {errs}")
+    return (", ".join(f"{k} {e:.3e}" for k, e in errs["update"].items())
+            + f" (limit {TRAIN_UPDATE_TOL:g}); control beta2 "
+            f"{TRAIN_UPDATE_FAULT_B2}: "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs["control"].items()))
 
 
 def recording_grads(calls: list):
@@ -4719,8 +4825,9 @@ def train_smoke_phase(dev) -> int:
             cfg = dataclasses.replace(cfg, capacity_factor=8.0)
         params = M.init_model(cfg, TRAIN_SEED + i, device="cpu")
         batch = _smoke_train_inputs(cfg, i, cpu)
-        counted = []
-        loss_c, want_c = _train_steps_on(cfg, params, batch, cpu, counted)
+        counted, moving = [], []
+        loss_c, want_c = _train_steps_on(cfg, params, batch, cpu, counted,
+                                         moving)
         loss_g, got_g = _train_steps_on(cfg, params, batch, dev, counted)
         want = 2 * train_launches(cfg)
         if counted[-1] != {"all": want, "sm90": 0, "f32": want}:
@@ -4742,6 +4849,7 @@ def train_smoke_phase(dev) -> int:
                          max(TRAIN_TOL, 2 * own))
         # v holds squares: an error of a gradient entry doubles there
         errs["v"] = (errs["v"][0], max(errs["v"][1], 2 * errs["m"][1]))
+        update = hold_update(moving[0], want_c, dev, arch)
         # the model's own attention calls, remat off so that each output
         # is the one the backward differentiates
         calls = []
@@ -4764,6 +4872,8 @@ def train_smoke_phase(dev) -> int:
             f"f64) " + ", ".join(f"{k} {e:.3e} ({'logged, ' * (k == 'params')}"
                                  f"limit {t:.3g})"
                                  for k, (e, t) in errs.items())
+            + f"; the card's AdamW update on the CPU's moving-step "
+            f"inputs against the CPU's: {update}"
             + f"; {want} f32 attention launches in two steps"
             + (f"; kernel route vs scan route on {got['calls']} calls' own "
                f"q, k, v, dO: max {got['worst']:.3e}, {got['exact']} bit "
@@ -5344,6 +5454,11 @@ def inspect_builds(libs: dict) -> None:
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no package beside the script ({ROOT / 'src'} "
+              f"holds no repro_torch); run it from a checkout",
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()

@@ -62,8 +62,8 @@ import torch
 from ..kernels.quack_scan import quack_scan as _quack_scan
 from .snapshot import explicit
 
-__all__ = ["Programs", "program_set", "clear_programs", "CACHE_SETS",
-           "capture_count", "replay_count", "first_use_count"]
+__all__ = ["Programs", "program_set", "clear_programs", "cached_sets",
+           "CACHE_SETS", "capture_count", "replay_count", "first_use_count"]
 
 # the kernel wrapper's launch counters a replay must move
 _COUNTERS = ("launches", "launches_no_lost")
@@ -105,6 +105,11 @@ def program_set(key: Hashable, build: Callable[[], "Programs"]
     while len(_SETS) > CACHE_SETS:
         _SETS.popitem(last=False)
     return ps
+
+
+def cached_sets() -> List["Programs"]:
+    """The cached sets, least recently used first."""
+    return list(_SETS.values())
 
 
 def clear_programs() -> None:
@@ -232,6 +237,14 @@ class Programs:
                      for name, n in self._progs[key].launches.items()}
         _add_counts(per_chunk, -chunks)
         _quack_scan.launches_skipped += per_chunk["launches"] * chunks
+
+    def output_nbytes(self) -> int:
+        """Bytes of the captured programs' output buffers, which the set
+        holds for every replay to rewrite (0 on the CPU, where a call
+        returns new tensors)."""
+        return sum(t.untyped_storage().nbytes()
+                   for prog in self._progs.values() if prog is not None
+                   for t in prog.outputs)
 
     def release(self) -> None:
         """Drop every captured graph (and so its memory pool);

@@ -80,7 +80,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -873,18 +873,36 @@ def _sched_window(sched_p, base: torch.Tensor, w: int):
 
 class _Plan(NamedTuple):
     """A run's constant device tensors at one window width, built before
-    any program runs (a captured program cannot copy from the host)."""
+    any program runs (a captured program cannot copy from the host), and
+    the buffers the host writes before each dispatch."""
 
     sched: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # padded by w
     seqs: Tuple[torch.Tensor, torch.Tensor]        # rs_seq, rr_seq
-    # (max(steps, 1),) int32: ``_max_msg_by_round``, the guard's needs
-    dispatched_by: torch.Tensor
+    # {k: (k,) int32}: a k-chunk span's overflow-guard needs, written by
+    # ``_load_needs`` before each dispatch (the JAX package passes them
+    # as a traced input), so that nothing on the device grows with the
+    # stream's rounds
+    needs: Dict[int, torch.Tensor]
 
 
 def _plan(spec: SimSpec, w: int, device) -> _Plan:
     return _Plan(_padded_sched(spec, w, device), _rotation_seqs(spec, device),
-                 torch.tensor(_max_msg_by_round(spec), dtype=_I32,
-                              device=device))
+                 {})
+
+
+def _load_needs(plan: _Plan, dispatched_by: np.ndarray, t: int, c: int,
+                k: int) -> None:
+    """Write a span's needs into the buffer its ``k``-chunk programs read
+    by address: ``needs[i]`` = ``dispatched_by[t + (i + 1) * c - 1]``,
+    the highest message dispatched by inner chunk ``i``'s last round.
+    ``k`` fills in stream order, after every replay that read the old
+    values; no host read."""
+    buf = plan.needs.get(k)
+    if buf is None:
+        buf = plan.needs[k] = torch.empty(k, dtype=_I32,
+                                          device=plan.sched[0].device)
+    for i in range(k):
+        buf[i].fill_(int(dispatched_by[t + (i + 1) * c - 1]))
 
 
 # ------------------------------------------------------------ dense run
@@ -950,9 +968,9 @@ def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
 class _LayoutKey:
     """What a program body reads of a run's specs as Python values: the
     spec with its per-lane inputs and window config normalised away
-    (``_neutral``; ``steps`` stays, since the plan holds ``max(steps, 1)``
-    dispatch horizons), hashed once per run rather than once per lookup
-    (the schedules are O(M) tuples)."""
+    (``_neutral``; ``steps`` stays, as in the JAX package's program
+    keys), hashed once per run rather than once per lookup (the
+    schedules are O(M) tuples)."""
 
     __slots__ = ("spec", "_hash")
 
@@ -1137,9 +1155,10 @@ def _superchunk(spec: SimSpec, fail: FailArrays, plan: _Plan, state,
 
     Before inner chunk ``i`` runs, the overflow guard tests each lane's
     exact device base against ``needs[i]`` = the highest message
-    dispatched by the chunk's last round (``plan.dispatched_by``, capped
-    by the lane's commit floor): ``min(need_i, floor - 1) - base < w`` on
-    every lane, AND-ed with the previous chunk's flag. The reference
+    dispatched by the chunk's last round (``plan.needs[k]``, which
+    ``_load_needs`` wrote for this span; capped by the lane's commit
+    floor): ``min(need_i, floor - 1) - base < w`` on every lane, AND-ed
+    with the previous chunk's flag. The reference
     skips a failed chunk with a ``lax.cond``; a CUDA graph cannot branch
     on the device, so here every chunk body runs and its results are
     selected with ``torch.where(ok, new, old)``: the state (every leaf of
@@ -1156,8 +1175,7 @@ def _superchunk(spec: SimSpec, fail: FailArrays, plan: _Plan, state,
     """
     state, mc = _split(state)
     dev = state.base.device
-    at = t0 + c * torch.arange(1, k + 1, dtype=_I32, device=dev) - 1
-    needs = plan.dispatched_by[at.long()]                      # (k,)
+    needs = plan.needs[k]                                      # (k,)
     floor = fail.commit_floor - 1                              # (B,)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     ms_k, queues, oks, blocks = [], [], [], []
@@ -1771,6 +1789,7 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         async_ok = K > 1 and bool((span_need - bases < w).all())
         key = (w, c, k, not last, collect)
         _td = obs_begin()
+        _load_needs(plan, dispatched_by, t, c, k)
         captured = key not in progs
         if captured:
             _CHUNK_TRACES[0] += 1

@@ -30,8 +30,8 @@ from ..optim import (AdamWConfig, adamw_update, cosine_schedule,
 from ..tree_util import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["rules_for", "param_shardings", "value_and_grad",
-           "build_train_step", "build_prefill_step", "build_decode_step",
-           "build_step", "StepBundle"]
+           "train_update", "build_train_step", "build_prefill_step",
+           "build_decode_step", "build_step", "StepBundle"]
 
 
 def rules_for(cfg: ModelConfig, mesh) -> Dict[str, Any]:
@@ -101,6 +101,16 @@ def value_and_grad(params, cfg: ModelConfig, batch, *,
     return (loss.detach(), metrics), tree_unflatten(treedef, grads)
 
 
+def train_update(opt_cfg: AdamWConfig, grads, params, opt_state,
+                 warmup: int, total_steps: int):
+    """A train step's update after its gradients: AdamW at
+    ``cosine_schedule(opt_state.step, warmup, total_steps)``;
+    ``(params, opt_state)``."""
+    lr_scale = cosine_schedule(opt_state.step, warmup, total_steps)
+    with record_function("train.adamw"):
+        return adamw_update(opt_cfg, grads, params, opt_state, lr_scale)
+
+
 def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
                      opt_cfg: AdamWConfig = AdamWConfig(),
                      impl: Optional[str] = None,
@@ -120,10 +130,8 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = value_and_grad(params, cfg, batch,
                                                 impl=impl)
-        lr_scale = cosine_schedule(opt_state.step, warmup, total_steps)
-        with record_function("train.adamw"):
-            params, opt_state = adamw_update(opt_cfg, grads, params,
-                                             opt_state, lr_scale)
+        params, opt_state = train_update(opt_cfg, grads, params, opt_state,
+                                         warmup, total_steps)
         return params, opt_state, {"loss": loss, **metrics}
 
     return StepBundle(fn=train_step, in_shapes=(p_shapes, o_shapes,

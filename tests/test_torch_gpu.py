@@ -425,7 +425,9 @@ def test_graphed_program_equals_eager_on_cuda(k, rotate):
                             torch.device("cuda"), keep=(fail, plan))
     eager = state
     before = cuda_quack_scan.launches
+    needs = tsim._max_msg_by_round(spec)
     for t in (0, k * c, 2 * k * c):
+        tsim._load_needs(plan, needs, t, c, k)       # the loop does this
         got = [x.clone() for x in progs.run("p", body, t)]
         eager, want = body(eager, torch.tensor(t, dtype=torch.int32,
                                                device="cuda"))
@@ -636,7 +638,9 @@ def test_graphed_program_with_metrics_equals_eager_on_cuda():
          type(mc)(*(x.clone() for x in mc))),
         torch.device("cuda"), keep=(fail, plan))
     eager = (state, mc)
+    needs = tsim._max_msg_by_round(spec)
     for t in (0, k * c, 2 * k * c):
+        tsim._load_needs(plan, needs, t, c, k)       # the loop does this
         got = [x.clone() for x in progs.run("p", body, t)]
         eager, want = body(eager, torch.tensor(t, dtype=torch.int32,
                                                device="cuda"))
@@ -1542,10 +1546,17 @@ def test_train_step_on_cuda_equals_cpu(arch):
     (two f32 runs, each that far from f64: the smoke model's
     conditioning, mixtral-8x22b, whisper-small); v, which holds squares,
     within at least twice m's limit. The parameters after the moving
-    step are not compared: AdamW moves an entry whose gradient is f32
-    noise by up to lr on either device (``chip_smoke.py`` 13a logs the
-    distance). A step launches the f32 kernel twice a layer of a stacked
-    segment (remat) and once elsewhere."""
+    step are not compared between the two runs: AdamW moves an entry
+    whose gradient is f32 noise by up to lr on either device
+    (``chip_smoke.py`` 13a logs the distance). The card's update itself
+    is held instead: the CPU's moving-step update arguments (its
+    gradients, the parameters and AdamW state of the step before),
+    carried to the card through the same ``steps.train_update`` call,
+    give the CPU step's parameters, m and v within 1e-6 of each leaf's
+    largest magnitude (phase 11c's limit), and the same update with
+    beta2 0.999 for 0.95 breaks that on the parameters and on v. A step
+    launches the f32 kernel twice a layer of a stacked segment (remat)
+    and once elsewhere."""
     _need_cuda()
     import dataclasses
 
@@ -1568,7 +1579,7 @@ def test_train_step_on_cuda_equals_cpu(arch):
         return float((g.cpu().double() - w.double()).abs().max()
                      / w.double().abs().max().clamp(min=1e-30))
 
-    def run(dev, cfg, params, batch):
+    def run(dev, cfg, params, batch, moving=None):
         p = tree_map(lambda a: a.to(dev), params)
         b = {k: x.to(dev) for k, x in batch.items()}
         (loss, _), grads = steps.value_and_grad(p, cfg, b)
@@ -1577,14 +1588,45 @@ def test_train_step_on_cuda_equals_cpu(arch):
         fa = cuda_flash_attention
         fa.launches = fa.launches_sm90 = fa.launches_f32 = 0
         p1, s1, _ = bundle(p, adamw_init(p), b)
-        p2, s2, _ = bundle(p1, s1, b)
+        real = steps.train_update
+
+        def kept(*args):               # the moving step's update arguments
+            moving.extend(args)
+            return real(*args)
+        if moving is not None:
+            steps.train_update = kept
+        try:
+            p2, s2, _ = bundle(p1, s1, b)
+        finally:
+            steps.train_update = real
         assert int(s2.step) == 2 and not all(
             torch.equal(a, b) for a, b in zip(tree_leaves(p1),
                                               tree_leaves(p2)))
-        return loss, {"grads": tree_leaves(grads), "m": tree_leaves(s2.m),
+        return loss, {"grads": tree_leaves(grads), "params": tree_leaves(p2),
+                      "m": tree_leaves(s2.m),
                       "v": tree_leaves(s2.v)}, fa.launches_f32
 
-    loss_c, want, _ = run("cpu", cfg, params, batch)
+    def card_update(opt_cfg, grads, params, state, warmup, total, **fault):
+        p, s = steps.train_update(
+            dataclasses.replace(opt_cfg, **fault),
+            *(tree_map(lambda a: a.cuda(), t) for t in (grads, params,
+                                                        state)),
+            warmup, total)
+        return {"params": tree_leaves(p), "m": tree_leaves(s.m),
+                "v": tree_leaves(s.v)}
+
+    moving = []
+    loss_c, want, _ = run("cpu", cfg, params, batch, moving)
+    for fault, held in (({}, True), (dict(b2=0.999), False)):
+        got = card_update(*moving, **fault)
+        errs = {key: max(rel(g, w) for g, w in zip(got[key], want[key]))
+                for key in got}
+        if held:
+            assert all(g.is_cuda for g in got["params"])
+            assert max(errs.values()) <= 1e-6, errs
+        else:
+            assert min(errs["params"], errs["v"]) > 1e-6, errs
+    del want["params"]
     loss_g, got, launches = run("cuda", cfg, params, batch)
     _, f64, _ = run("cpu", dataclasses.replace(cfg, dtype="float64"),
                     tree_map(lambda a: a.double(), params),

@@ -34,10 +34,13 @@ import dataclasses
 import json
 import re
 import tracemalloc
+import weakref
 
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.core.simulator as jsim
 import repro.obs.live as jlive
@@ -334,6 +337,94 @@ def test_horizon_mode_keeps_no_stream_sized_host_array():
     assert spec.window_slots * 8 < spec.m
     assert peaks[1] > mirrors > 2 * peaks[0], (peaks, mirrors)
     assert peaks[0] * 4 < peaks[1], peaks
+
+
+class _LiveBytes(TorchDispatchMode):
+    """The peak bytes of the distinct storages alive among the tensors
+    that the aten ops run under it create or read (each storage counted
+    while a tensor seen on it lives: a weakref finalizer on every tensor,
+    a count per storage)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen, self.refs, self.size = {}, {}, {}
+        self.live = self.peak = 0
+
+    def _see(self, t):
+        if not isinstance(t, torch.Tensor) or id(t) in self.seen:
+            return
+        storage = t.untyped_storage()
+        if not storage.nbytes():
+            return
+        key = storage.data_ptr()
+        self.seen[id(t)] = weakref.finalize(t, self._gone, id(t), key)
+        if key not in self.refs:
+            self.refs[key] = 0
+            self.size[key] = storage.nbytes()
+            self.live += storage.nbytes()
+            self.peak = max(self.peak, self.live)
+        self.refs[key] += 1
+
+    def _gone(self, tid, key):
+        del self.seen[tid]
+        self.refs[key] -= 1
+        if not self.refs[key]:
+            del self.refs[key]
+            self.live -= self.size.pop(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in pytree.tree_leaves((args, kwargs, out)):
+            self._see(t)
+        return out
+
+
+class _KeepingSink:
+    """A sink that keeps the final width and, as the faulty control, one
+    ``torch.zeros(keep)`` alive from its first chunk to the run's end."""
+
+    def __init__(self, keep: int = 0):
+        self.keep, self.kept, self.w = keep, None, None
+
+    def on_chunk(self, *args):
+        if self.keep and self.kept is None:
+            self.kept = torch.zeros(self.keep)
+
+    def on_final(self, state, mc, bases, w, growth_events, t):
+        self.w = int(w)
+
+
+@pytest.mark.parametrize("control", [False, True], ids=["flat", "control"])
+def test_horizon_mode_device_state_is_independent_of_the_horizon(control):
+    """P1 for a resident link: BFT f = 1, ``window_slots="auto"``, 32
+    messages a round, at horizons of 2,048 and 16,384 messages. Each
+    reading is the peak of the tensor bytes the loop holds (``_LiveBytes``
+    over the whole run, the program cache emptied first: the set's state,
+    plan and every intermediate) less the padded schedule, 12 bytes a
+    message and a window slot at the final width, O(M) by design. The two
+    readings agree within W bytes, one byte a window slot, and never a
+    bound taken from M: a device tensor of a byte or more a round or
+    message over the 14,336 messages between the horizons breaks it (the
+    guard's needs, once a 4-byte-a-round table, read 1,792 bytes apart).
+    The faulty control keeps ``torch.zeros(m)`` alive through the run
+    and must break it."""
+    b = tcore.RSMConfig.bft(1)
+    sim = tcore.SimConfig(window=1, phi=6, window_slots="auto",
+                          chunk_steps=8, superchunk=8)
+    reads, widths = [], set()
+    for horizon in (2048, 16384):
+        spec = tstream.build_stream_spec(
+            b, b, sim, tstream.ArrivalProcess(kind="constant", rate=32.0),
+            horizon)
+        tgraphs.clear_programs()
+        sink = _KeepingSink(spec.m if control else 0)
+        with _LiveBytes() as mode:
+            tsim._run_windowed_batch([spec], CPU, drain_sink=sink)
+        reads.append(mode.peak - 12 * (spec.m + sink.w))
+        widths.add(sink.w)
+    (w,) = widths
+    assert w < 2048                  # the window is not the horizon
+    assert (abs(reads[1] - reads[0]) > w) == control, (reads, w)
 
 
 # ---------------------------------------------------------------- sessions
