@@ -237,13 +237,21 @@ Phases, each of which raises on failure (exit code non-zero):
    rotating chunks ``quack_scan`` launches; the dense fallback refused
    on the card with the CPU's message (``tests/test_stream.py``'s
    crashed stream); ``python -m repro_torch.analysis --check`` on the
-   card (a K = 8 run with ``debug_checks`` under the sync debug mode:
-   at most ceil(C/K) + 2 dispatches, 0 implicit transfers, then warm
-   with 0 captures); a seeded ``.item()`` inside ``engine_guard`` must
-   raise ``SanitizerError``. 10b at full width: BFT f = 6 both sides,
-   window 4, phi 32, 32-round chunks, K = 8, ``window_slots="auto"``
-   (W = 7,616), a diurnal link (``ArrivalProcess(kind="diurnal",
-   rate=64, period=512, amplitude=0.5, seed=0)``) over 524,288
+   card, its three passes: the capture-discipline linter over
+   ``src/repro_torch`` (no finding outside the port's baseline), the
+   audit of the eight captured programs on CUDA (no host sync, no
+   widening, no CPU operand, ``quack_scan`` launches 2 x rounds +
+   rotating chunks each) and the runtime contracts (a K = 8 run with
+   ``debug_checks`` under the sync debug mode: at most ceil(C/K) + 2
+   dispatches, 0 implicit transfers, then warm with 0 captures); two
+   seeded controls audited eagerly on the card (a ``.item()``, which
+   the linter and the auditor must both flag, and a ``.double()``,
+   which the auditor must flag); a seeded ``.item()`` inside
+   ``engine_guard`` must raise ``SanitizerError``. 10b at full width:
+   BFT f = 6 both sides, window 4, phi 32, 32-round chunks, K = 8,
+   ``window_slots="auto"`` (W = 7,616), a diurnal link
+   (``ArrivalProcess(kind="diurnal", rate=64, period=512,
+   amplitude=0.5, seed=0)``) over 524,288
    messages (8,411 rounds) and 131,072 (2,275), each session cold under
    ``Measured`` and tracemalloc: all delivered, no problem, launches 2 x
    rounds + rotating chunks; at 524,288 a ``run_simulation`` of the
@@ -3491,15 +3499,38 @@ def stream_path_phase() -> list:
         log(f"[stream path] dense fallback refused on the card as on the "
             f"CPU: {msgs['cuda'][:160]}...")
 
-        # the runtime contracts on the card
+        # the three analysis passes on the card: the linter, the audit of
+        # the eight captured programs, the runtime contracts
         report = out / "ANALYSIS.json"
+        t_an = time.perf_counter()
         rc, _, _ = _counted(lambda: analysis_main(
             ["--check", "--json", str(report)]), launches)
-        sec = json.loads(report.read_text())["sanitizer"]
+        t_an = time.perf_counter() - t_an
+        full = json.loads(report.read_text())
+        sec, lint, prog = (full["sanitizer"], full["astlint"],
+                           full["jaxpr"])
         if rc or not sec["ok"] or sec["warm"]["recompiles"] or \
                 sec["cold"]["transfers"] or sec["warm"]["transfers"]:
             raise AssertionError(f"repro_torch.analysis --check: rc {rc}, "
                                  f"{sec}")
+        bad = [p["name"] for p in prog["programs"]
+               if p["host_syncs"] or p["widenings"] or p["cpu_operands"]
+               or p["expected_launches"] is None
+               or p["launches"] != p["expected_launches"]]
+        if not lint["ok"] or lint["new"] or not prog["ok"] or bad or \
+                len(prog["programs"]) != 8 or \
+                prog["shape"]["device"] != "cuda":
+            raise AssertionError(f"repro_torch.analysis --check: astlint "
+                                 f"{lint['rendered']}, programs {bad}, "
+                                 f"{prog['violations']}")
+        log(f"[stream path] astlint over src/repro_torch on the card's "
+            f"host: {lint['n_findings']} finding(s), {len(lint['new'])} "
+            f"new, {lint['seconds']:.2f} s; programlint on the card: "
+            + ", ".join(f"{p['name']} {p['n_ops']} ops {p['launches']}"
+                        f" launches" for p in prog["programs"])
+            + f" (each 2 x rounds + rotating chunks), no host sync, "
+            f"widening or CPU operand, {prog['seconds']:.2f} s; copy-back "
+            f"bytes {[p['copy_back_bytes'] for p in prog['programs']]}")
         log(f"[stream path] python -m repro_torch.analysis --check on the "
             f"card (debug_checks, M={sec['shape']['m']}, "
             f"W={sec['shape']['window_slots']}, K=8): cold "
@@ -3508,7 +3539,14 @@ def stream_path_phase() -> list:
             f"{sec['cold']['host_syncs']} host syncs, "
             f"{sec['cold']['recompiles']} captures, 0 implicit transfers; "
             f"warm {sec['warm']['dispatches']} dispatches, "
-            f"{sec['warm']['recompiles']} captures, 0 implicit transfers")
+            f"{sec['warm']['recompiles']} captures, 0 implicit transfers, "
+            f"{sec['seconds']:.2f} s")
+        t_ctl = time.perf_counter()
+        _analysis_controls()
+        t_ctl = time.perf_counter() - t_ctl
+        log(f"[stream path] the analysis command {t_an:.2f} s; astlint, "
+            f"programlint and their controls "
+            f"{lint['seconds'] + prog['seconds'] + t_ctl:.2f} s")
     x = torch.arange(4, device="cuda")
     try:
         with engine_guard():
@@ -3521,6 +3559,58 @@ def stream_path_phase() -> list:
     if torch.cuda.get_sync_debug_mode() != 0:
         raise AssertionError("the sync debug mode outlived the guard")
     return launches
+
+
+# seeded controls of the analysis passes, audited eagerly on the card:
+# the linter and the auditor must both flag the .item(); the auditor
+# must flag the .double() (a widening, which no lint rule reads)
+ANALYSIS_CONTROLS = {
+    "item": ("""
+def _build(c: int):
+    def body(carry, t0):
+        state, flags = carry
+        n = state.sum().item()
+        return (state + n, flags), [state]
+    return body
+
+def loop(progs):
+    return progs.run(("control",), _build(4), 0)
+""", ["host-sync"], "host sync aten._local_scalar_dense"),
+    "double": ("""
+def _build(c: int):
+    def body(carry, t0):
+        state, flags = carry
+        wide = state.double() * c
+        return (wide.to(torch.int32), flags), [state]
+    return body
+
+def loop(progs):
+    return progs.run(("control",), _build(4), 0)
+""", [], "widening torch.float64"),
+}
+
+
+def _analysis_controls() -> None:
+    """Each control's source linted and its body audited on the card;
+    each must be flagged as ``ANALYSIS_CONTROLS`` says."""
+    from repro_torch.analysis.astlint import lint_source
+    from repro_torch.analysis.programlint import audit_callable
+    dev = torch.device("cuda")
+    state = (torch.arange(64, dtype=torch.int32, device=dev),
+             torch.zeros(64, dtype=torch.bool, device=dev))
+    for name, (src, rules, word) in ANALYSIS_CONTROLS.items():
+        found = [f.rule for f in lint_source(src, f"control_{name}.py")]
+        scope = {"torch": torch}
+        exec(compile(src, f"control_{name}.py", "exec"), scope)
+        audit = audit_callable(scope["_build"](4), state, name, dev)
+        flagged = [v for v in audit.violations() if word in v]
+        if found != rules or audit.ok or not flagged:
+            raise AssertionError(f"analysis control {name}: lint {found} "
+                                 f"(expected {rules}), audit "
+                                 f"{audit.violations()}")
+        log(f"[stream path] analysis control .{name}() on the card: lint "
+            f"{found or 'nothing (no lint rule reads a widening)'}, audit "
+            f"{flagged}")
 
 
 class _RefuseSink:

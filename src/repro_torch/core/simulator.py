@@ -909,6 +909,20 @@ def _load_needs(plan: _Plan, dispatched_by: np.ndarray, t: int, c: int,
 DENSE_BLOCK = 32    # rounds a dense program runs (plus one shorter tail)
 
 
+def _dense_block(spec: SimSpec, fail: FailArrays, plan: _Plan, c: int):
+    """The dense engine's program: ``c`` rounds over the whole stream
+    (window ``[0, M)``), ``body(carry, t0) -> (carry, [metrics (B, c, 6)
+    int32])``. The dense run and the program auditor
+    (``analysis.programlint``) both build it here."""
+
+    def body(carry, t0):
+        state, mc = _split(carry)
+        state, ms, mc = _rounds(spec, fail, plan, state, t0, c, spec.m, mc)
+        return _carry(state, mc), [ms]
+
+    return body
+
+
 def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
     """Dense full-stream runs, one lane per spec: window = [0, M), no
     rotation.
@@ -931,16 +945,10 @@ def _run_dense_batch(specs: List[SimSpec], device) -> List[SimResult]:
     metrics = torch.zeros((n_b, steps, len(StepMetrics._fields)),
                           dtype=_I32, device=device)
 
-    def block(c):
-        def body(carry, t0):
-            state, mc = _split(carry)
-            state, ms, mc = _rounds(spec0, fail, plan, state, t0, c, m, mc)
-            return _carry(state, mc), [ms]
-        return body
-
     for t in range(0, steps, DENSE_BLOCK):
         c = min(DENSE_BLOCK, steps - t)
-        (ms,) = progs.run(("dense", c, collect), block(c), t)
+        (ms,) = progs.run(("dense", c, collect),
+                          _dense_block(spec0, fail, plan, c), t)
         metrics[:, t:t + c].copy_(ms)
     final, mc = _split(progs.state)
     quack_time, deliver_time, retry, recv_has, ms, *acc = to_host(
@@ -1202,6 +1210,21 @@ def _superchunk(spec: SimSpec, fail: FailArrays, plan: _Plan, state,
     if mc is None:
         return (state,) + out
     return ((state, mc),) + out + (stack_blocks(blocks),)
+
+
+def _span_program(spec: SimSpec, fail: FailArrays, plan: _Plan, c: int,
+                  k: int, rotate: bool, w: int):
+    """The windowed loop's program of a span: ``k`` chunks of ``c`` rounds
+    at width ``w`` (``_superchunk``), ``body(carry, t0) -> (carry,
+    [metrics, *queue, oks, *block])``, the drain's order. The loop and the
+    program auditor (``analysis.programlint``) both build it here."""
+
+    def body(carry, t0):
+        carry, ms, queue, oks, *blk = _superchunk(
+            spec, fail, plan, carry, t0, w, c, k, rotate)
+        return carry, [ms, *queue, oks, *(blk[0] if blk else ())]
+
+    return body
 
 
 # The windowed engine's counters, the JAX package's contract: a *trace*
@@ -1645,13 +1668,6 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         while pending:
             drain_one(pending.pop(0))
 
-    def program(c: int, k: int, rotate: bool, w: int, fail, plan):
-        def body(carry, t0):
-            carry, ms, queue, oks, *blk = _superchunk(
-                spec0, fail, plan, carry, t0, w, c, k, rotate)
-            return carry, [ms, *queue, oks, *(blk[0] if blk else ())]
-        return body
-
     while t < steps:
         c = min(c_full, steps - t)
         # (a) a schedule swap writes the new inputs into the tensors the
@@ -1793,7 +1809,8 @@ def _run_windowed_batch_impl(specs: List[SimSpec], device,
         captured = key not in progs
         if captured:
             _CHUNK_TRACES[0] += 1
-        result = progs.run(key, program(c, k, not last, w, fail, plan), t)
+        result = progs.run(
+            key, _span_program(spec0, fail, plan, c, k, not last, w), t)
         _CHUNK_DISPATCHES[0] += 1
         pending.append(dict(t0=t, k=k, c=c, rotate=not last, key=key,
                             progs=progs, handle=drains.start(result)))

@@ -9,8 +9,10 @@ silent, the violation message naming its ceiling, ``engine_guard``
 behind ``debug_checks`` (results bit-equal with it on and off, a transfer
 seeded inside the loop raising), ``dispatch_bound`` and the ``--check``
 CLI. Each engine run is held to the JAX package's counters on the same
-spec. The AST and jaxpr passes of ``repro.analysis`` have no counterpart
-in the port.
+spec. The AST and jaxpr passes of ``repro.analysis`` have their
+counterparts in ``repro_torch.analysis.astlint`` and ``programlint``,
+held in ``tests/test_torch_astlint.py`` and
+``tests/test_torch_programlint.py``.
 """
 
 import dataclasses

@@ -33,7 +33,9 @@ A streaming session (``repro_torch.stream``, the loop's horizon mode)
 equals its CPU run, keeps no stream-sized host array, and leaves a
 batch run of its spec nothing to capture; ``debug_checks`` arms the
 sanitizer's guard (``repro_torch.analysis``), which raises on a seeded
-synchronisation and passes a real K = 8 run.
+synchronisation and passes a real K = 8 run; the program auditor finds
+the eight captured programs clean on the card, with the launch counts
+the formula gives.
 """
 
 import gc
@@ -1298,6 +1300,36 @@ def test_engine_guard_on_cuda():
         assert np.array_equal(getattr(a, f), getattr(b, f)), f
     assert a.obs.to_dict() == b.obs.to_dict()
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_program_audit_on_cuda():
+    """The eight captured programs, run once each on clones of their
+    state on the card under the auditor: no host sync, no widening, no
+    CPU operand, and ``quack_scan`` launches 2 x rounds + one a rotating
+    chunk. Controls on the card: a ``.item()`` and a CPU operand."""
+    _need_cuda()
+    from repro_torch.analysis.programlint import audit_callable, audit_engine
+    report = audit_engine(device="cuda")
+    assert report["ok"], report["violations"]
+    assert len(report["programs"]) == 8
+    for prog in report["programs"]:
+        assert prog["device"].startswith("cuda")
+        assert not prog["cpu_operands"] and not prog["host_syncs"]
+        assert prog["launches"] == prog["expected_launches"] > 0, prog
+    state = (torch.arange(8, dtype=torch.int32, device="cuda"),)
+    host = torch.arange(8, dtype=torch.int32)
+
+    def item(carry, t0):
+        return (carry[0] + carry[0].sum().item(),), []
+
+    def cpu_operand(carry, t0):
+        return (carry[0] + host.to("cuda"),), []
+
+    for body, word in ((item, "host sync"), (cpu_operand, "CPU operand")):
+        audit = audit_callable(body, state, body.__name__, "cuda")
+        assert not audit.ok
+        assert any(word in v for v in audit.violations()), \
+            audit.violations()
 
 
 # ------------------------------------------- the cross-pod runtime
