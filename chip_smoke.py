@@ -3503,12 +3503,24 @@ def stream_path_phase() -> list:
         # the eight captured programs, the runtime contracts
         report = out / "ANALYSIS.json"
         t_an = time.perf_counter()
+        counted = [0, 0]
         rc, _, _ = _counted(lambda: analysis_main(
-            ["--check", "--json", str(report)]), launches)
+            ["--check", "--json", str(report)]), counted)
         t_an = time.perf_counter() - t_an
         full = json.loads(report.read_text())
         sec, lint, prog = (full["sanitizer"], full["astlint"],
                            full["jaxpr"])
+        # the audit runs its programs eagerly, outside any capture: no run
+        # of the main path. Only the sanitizer's engine runs count
+        audit = [sum(p["launches"] - p["launches_no_lost"]
+                     for p in prog["programs"]),
+                 sum(p["launches_no_lost"] for p in prog["programs"])]
+        if any(a > c for a, c in zip(audit, counted)):
+            raise AssertionError(f"repro_torch.analysis --check: the audit's"
+                                 f" launches {audit} exceed the command's "
+                                 f"{counted}")
+        launches[0] += counted[0] - audit[0]
+        launches[1] += counted[1] - audit[1]
         if rc or not sec["ok"] or sec["warm"]["recompiles"] or \
                 sec["cold"]["transfers"] or sec["warm"]["transfers"]:
             raise AssertionError(f"repro_torch.analysis --check: rc {rc}, "
@@ -3544,9 +3556,15 @@ def stream_path_phase() -> list:
         t_ctl = time.perf_counter()
         _analysis_controls()
         t_ctl = time.perf_counter() - t_ctl
+        added = lint['seconds'] + prog['seconds'] + t_ctl
         log(f"[stream path] the analysis command {t_an:.2f} s; astlint, "
-            f"programlint and their controls "
-            f"{lint['seconds'] + prog['seconds'] + t_ctl:.2f} s")
+            f"programlint and their controls {added:.2f} s (budget "
+            f"{ANALYSIS_BUDGET_S:.0f} s); the audit's {audit} launches "
+            f"left out of the main path's")
+        if added > ANALYSIS_BUDGET_S:
+            raise AssertionError(f"astlint, programlint and their controls "
+                                 f"took {added:.2f} s, over their "
+                                 f"{ANALYSIS_BUDGET_S:.0f} s budget")
     x = torch.arange(4, device="cuda")
     try:
         with engine_guard():
@@ -3560,6 +3578,10 @@ def stream_path_phase() -> list:
         raise AssertionError("the sync debug mode outlived the guard")
     return launches
 
+
+# the seconds phase 10a may add for the linter, the program audit and
+# their controls
+ANALYSIS_BUDGET_S = 15.0
 
 # seeded controls of the analysis passes, audited eagerly on the card:
 # the linter and the auditor must both flag the .item(); the auditor

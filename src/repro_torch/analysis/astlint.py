@@ -37,9 +37,10 @@ package's format, grandfathers findings by fingerprint):
     ``masked_select``, ``torch.equal`` in a capture context.
 ``tensor-branch``
     A Python ``if`` / ``while`` / ``assert`` or conditional expression
-    whose test reads a value computed inside the context (its
-    parameters and locals). Values closed over from the builder are
-    fine, and so are reads of metadata.
+    whose test reads a tensor value: a parameter or local of the
+    context, or one closed over from its builder (a tensor the builder
+    was given is read on the host all the same). A builder's parameters
+    annotated with a static type, and reads of metadata, are fine.
 ``import-time-tensor``
     A tensor factory (``torch.tensor``, ``torch.zeros``, ...) or a
     ``torch.cuda.*`` call at module or class scope: it allocates (and
@@ -552,8 +553,7 @@ class _ModuleLinter:
                                        ast.JoinedStr)):
             return _STATIC
         if isinstance(e, ast.Name):
-            kinds = self.kinds(scope)
-            return kinds.get(e.id, _STATIC)
+            return self._name_kind(e.id, scope)
         if isinstance(e, ast.Attribute):
             if e.attr in _META_ATTRS:
                 return _STATIC
@@ -624,9 +624,23 @@ class _ModuleLinter:
         return self._max(list(call.args) + [k.value for k in call.keywords],
                          scope, truth=False)
 
+    def _name_kind(self, name: str, scope: _Scope) -> int:
+        """A name's kind where it is bound: the nearest enclosing function
+        scope that binds it. A builder's closure is no Python value here
+        (a tensor it closes over is read on the host all the same), so a
+        builder parameter is static only when annotated so; module names
+        are static."""
+        s: Optional[_Scope] = scope
+        while s is not None and s is not self.module:
+            kinds = self.kinds(s)
+            if name in kinds or name in s.locals:
+                return kinds.get(name, _STATIC)
+            s = s.parent
+        return _STATIC
+
     def _value_names(self, e: ast.AST, scope: _Scope) -> List[str]:
-        kinds = self.kinds(scope)
-        return sorted({n.id for n in _names(e) if kinds.get(n.id)})
+        return sorted({n.id for n in _names(e)
+                       if self._name_kind(n.id, scope)})
 
     # -- rules ---------------------------------------------------------------
     def run_rules(self) -> List[Finding]:

@@ -91,7 +91,8 @@ class ProgramAudit:
     arg_bytes: Tuple[int, ...]             # the state, t0
     copy_back_bytes: int                   # state leaves returned anew
     launches: Optional[int] = None         # quack_scan (on the card)
-    expected_launches: Optional[int] = None
+    launches_no_lost: Optional[int] = None  # of them, without the loss
+    expected_launches: Optional[int] = None  # quorum
 
     @property
     def ok(self) -> bool:
@@ -136,7 +137,9 @@ class _Recorder(TorchDispatchMode):
     @classmethod
     def _should_skip_dynamo(cls) -> bool:
         # the recorder never runs under torch.compile: left unwrapped, its
-        # first use imports no torch._dynamo (seconds of import)
+        # first use imports no torch._dynamo (seconds of import). A private
+        # hook, checked against torch 2.11; should a later torch drop it,
+        # chip_smoke.py phase 10a fails on its time budget
         return False
 
     def __init__(self, device: torch.device):
@@ -216,9 +219,10 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _launch_count() -> int:
+def _launch_counts() -> Tuple[int, int]:
+    """``quack_scan``'s launches: all, and without the loss quorum."""
     from ..kernels.quack_scan import quack_scan
-    return quack_scan.launches
+    return quack_scan.launches, quack_scan.launches_no_lost
 
 
 def audit_callable(body, state, name: str, device=None, *, t: int = 0,
@@ -236,11 +240,12 @@ def audit_callable(body, state, name: str, device=None, *, t: int = 0,
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.synchronize(dev)
-    before = _launch_count()
+    before = _launch_counts()
     rec = _Recorder(dev)
     with rec:
         new, outputs = body(carry, t0)
-    launches = _launch_count() - before if cuda else None
+    launches = [a - b for a, b in zip(_launch_counts(), before)] if cuda \
+        else [None, None]
     inputs = {id(x) for x in _leaves(carry)}
     new_leaves = _leaves(new)
     widenings = list(rec.widenings)
@@ -257,7 +262,7 @@ def audit_callable(body, state, name: str, device=None, *, t: int = 0,
         arg_bytes=(_nbytes(leaves), _nbytes([t0])),
         copy_back_bytes=_nbytes([x for x in new_leaves
                                  if id(x) not in inputs]),
-        launches=launches,
+        launches=launches[0], launches_no_lost=launches[1],
         expected_launches=expected_launches if cuda else None)
 
 
@@ -396,11 +401,6 @@ def audit_engine(m: int = 64, window_slots: int = 16, chunk_steps: int = 4,
         "shape": dict(m=spec.m, steps=spec.steps, window_slots=w,
                       chunk_steps=c, superchunk=k, device=str(dev)),
         "programs": [a.to_dict() for a in audits],
-        "program_reuse": {
-            "replay_resume": "chunk (K=1, zero-capture contract)",
-            "topology_chained": "chunk (commit floors are tensors it "
-                                "reads)",
-        },
         "dispatch_estimates": estimates,
         "violations": violations,
         "ok": not violations,

@@ -177,11 +177,12 @@ def test_rule_tensor_branch():
     for line in ("assert y.all()", "z = y if y.any() else y"):
         _one(src.replace("{LINE}\n                    y = y * 2", line),
              "tensor-branch")
-    # config dispatch (a string compare) and builder closures are static
+    # config dispatch (a string compare) and the builder's parameters
+    # annotated static are static
     _none("""
         import torch
 
-        def _build(kind, n):
+        def _build(kind: str, n: int):
             def body(carry, t0):
                 if kind == "rwkv":
                     carry = carry * 2
@@ -195,6 +196,29 @@ def test_rule_tensor_branch():
             return progs.run(("k",), _build("rwkv", 8), 0)
     """)
     _none(METADATA_BODY)
+    # a tensor closed over from the builder (the engine's _Plan) is read
+    # on the host all the same: branching on it, or int() of it, in the
+    # body is a finding
+    closed = """
+        import torch
+
+        def _build(spec, plan: _Plan, c: int, k: int):
+            def body(carry, t0):
+                {LINE}
+                return carry, []
+
+            return body
+
+        def loop(progs, spec, plan):
+            return progs.run(("k",), _build(spec, plan, 4, 1), 0)
+    """
+    f = _one(closed.format(LINE="if plan.needs[k][0] > 0: carry = carry + 1"),
+             "tensor-branch")
+    assert "plan" in f.message and f.symbol == "_build.body"
+    f = _one(closed.format(LINE="carry = carry + int(plan.needs[k][0])"),
+             "host-sync")
+    assert "plan" in f.message
+    _none(closed.format(LINE="carry = carry + plan.needs[k][0]"))
 
 
 def test_rule_tensor_branch_through_the_graph_block():

@@ -1316,6 +1316,7 @@ def test_program_audit_on_cuda():
         assert prog["device"].startswith("cuda")
         assert not prog["cpu_operands"] and not prog["host_syncs"]
         assert prog["launches"] == prog["expected_launches"] > 0, prog
+        assert 0 < prog["launches_no_lost"] < prog["launches"], prog
     state = (torch.arange(8, dtype=torch.int32, device="cuda"),)
     host = torch.arange(8, dtype=torch.int32)
 

@@ -64,7 +64,6 @@ def test_audit_matches_the_jax_auditor(cli, jax_audit):
     assert {k: port["shape"][k] for k in keys} == \
         {k: jax_audit["shape"][k] for k in keys}
     assert port["dispatch_estimates"] == jax_audit["dispatch_estimates"]
-    assert port["program_reuse"].keys() == jax_audit["program_reuse"].keys()
     assert jax_audit["ok"]
 
 
@@ -80,7 +79,7 @@ def test_audit_reports_bytes_and_no_launch_check_on_the_cpu(cli):
         assert 0 < prog["copy_back_bytes"] <= prog["arg_bytes"][0]
         if prog["name"] != "dense":
             assert prog["copy_back_bytes"] == prog["arg_bytes"][0]
-        assert prog["launches"] is None
+        assert prog["launches"] is None and prog["launches_no_lost"] is None
         assert "gather" in prog["ops"] and "_to_copy" in prog["ops"]
 
 
