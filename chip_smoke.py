@@ -241,12 +241,15 @@ Phases, each of which raises on failure (exit code non-zero):
    ``src/repro_torch`` (no finding outside the port's baseline), the
    audit of the eight captured programs on CUDA (no host sync, no
    widening, no CPU operand, ``quack_scan`` launches 2 x rounds +
-   rotating chunks each) and the runtime contracts (a K = 8 run with
+   rotating chunks each; and of the model zoo's decode step, the body
+   ``launch.steps.decode`` captures: no host sync or CPU operand, 0
+   copy-back bytes) and the runtime contracts (a K = 8 run with
    ``debug_checks`` under the sync debug mode: at most ceil(C/K) + 2
-   dispatches, 0 implicit transfers, then warm with 0 captures); two
+   dispatches, 0 implicit transfers, then warm with 0 captures); three
    seeded controls audited eagerly on the card (a ``.item()``, which
-   the linter and the auditor must both flag, and a ``.double()``,
-   which the auditor must flag); a seeded ``.item()`` inside
+   the linter and the auditor must both flag, a ``.double()``, which
+   the auditor must flag, and a decode body that reads ``int(pos)``,
+   which both must flag); a seeded ``.item()`` inside
    ``engine_guard`` must raise ``SanitizerError``. 10b at full width:
    BFT f = 6 both sides, window 4, phi 32, 32-round chunks, K = 8,
    ``window_slots="auto"`` (W = 7,616), a diurnal link
@@ -288,18 +291,26 @@ Phases, each of which raises on failure (exit code non-zero):
    host s and bytes. No kernel of this repo runs here: ``repro``
    computes all of it outside ``pl.pallas_call``.
 12. The serving path (``repro_torch.models``, ``launch.serve``), prefill
-   attention on the hand-written kernel. 12a: every config at
-   ``.smoke()`` (f32), B 2, a 16-token prefill and two decode steps, on
-   CUDA (the kernel route: the f32 kernel once an attention call of the
-   forward and the prefill, none a decode step) against the CPU on the
-   same weights (``SERVE_TOL``), and prefill / decode consistent with
-   the forward (``tests/test_models_smoke.py``'s property). 12b:
-   granite-8b at full width and depth (36 layers, 8,254,689,280 f32
-   parameters from a seeded CUDA generator) serving B 4 x 512 prompt
-   tokens -> 16 greedy tokens through ``launch.serve.generate``, twice
-   (cold, warm): init s, prefill s, decode ms/step, tok/s, peak device
-   memory, the bf16 kernel's launches (36 in the served run: one a
-   prefill layer, none a decode step). The kernel on every layer's own
+   attention on the hand-written kernel, each decode step one captured
+   CUDA graph (``launch.steps.decode``: a ``core.graphs.Programs`` set,
+   the caches donated into its buffers). 12a: every config at
+   ``.smoke()`` (f32), B 2, a 16-token prefill and two decode steps
+   through the captured step (one capture, two replays), on CUDA (the
+   kernel route: the f32 kernel once an attention call of the forward
+   and the prefill, none a decode step) against the CPU on the same
+   weights (``SERVE_TOL``), the decode steps' tokens equal to the eager
+   CUDA step's (``models.decode_step`` op by op), and prefill / decode
+   consistent with the forward (``tests/test_models_smoke.py``'s
+   property). 12b: granite-8b at full width and depth (36 layers,
+   8,254,689,280 f32 parameters from a seeded CUDA generator) serving
+   B 4 x 512 prompt tokens -> 16 greedy tokens through
+   ``launch.serve.generate``, twice: cold (the program cache emptied:
+   one capture, 16 replays) and warm (0 captures, the same tokens):
+   init s, prefill s, decode ms/step, tok/s, peak device memory, the
+   decode program's graph pool bytes, the bf16 kernel's launches (36 in
+   the served run: one a prefill layer, none a decode step); the same
+   generation with the eager step, whose tokens must be the captured
+   step's, and its ms/step. The kernel on every layer's own
    q, k, v of a served prefill against an f64 oracle: no more entries
    over phase 7's bf16 tolerance than its plain version (whose f32
    scores, several hundred here, break it too where two keys nearly
@@ -309,8 +320,11 @@ Phases, each of which raises on failure (exit code non-zero):
    ``dtype="float32"``, scan, TF32 off), as max |difference| / max
    |logit|: the kernel route no further than the plain one, and two
    faulty controls (causal off; query head h reading KV head h % KV)
-   further than the kernel route. A prefill and a decode step under
-   ``torch.profiler`` (device busy, attention's share); the kernel at
+   further than the kernel route. A prefill, an eager decode step and
+   a captured one under ``torch.profiler`` (device busy, attention's
+   share, the host's launch calls: a captured step must be one graph
+   launch and under 10 calls), the captured step's CUDA-event span
+   unprofiled, and ``FlopCounterMode`` over an eager step; the kernel at
    the model's shape (B 4, H 32, KV 8, S 512, D 128, causal) beside
    SDPA, its plain version and its bound. The twin: the served weights'
    first 2 layers (full width), f32, scan, B 1 x 128, CUDA against the
@@ -327,9 +341,11 @@ Phases, each of which raises on failure (exit code non-zero):
    1e-4 of the leaf's max or, where larger, twice the CPU's own f32
    distance from an f64 run of the same steps; the parameters logged),
    the card's AdamW update held: the CPU's moving-step update arguments
-   (its gradients, the parameters and AdamW state of the step before)
-   carried to the card through ``launch.steps.train_update``, the call
-   ``build_train_step`` makes, give the CPU step's parameters, m and v
+   (its gradients, the parameters and AdamW state of the step before,
+   copied: the step donates them, ``optim.adamw_update_`` writing them
+   in place) carried to the card through ``launch.steps.train_update``,
+   the call ``build_train_step`` makes, give the CPU step's parameters,
+   m and v
    within 1e-6 of a leaf's max (``TRAIN_UPDATE_TOL``), and the same
    update with beta2 0.999 must break that on the parameters and on v;
    the f32 kernel launched twice an attention layer of a stacked segment
@@ -372,7 +388,9 @@ Phases, each of which raises on failure (exit code non-zero):
    FLOPs, and the counted FLOPs over 13b's measured warm pjit step (and
    12b's warm prefill) within 989 TFLOP/s, the share printed; (c) the
    argument bytes a position within 13b's pjit and 12b's measured peak
-   device memory.
+   device memory; (d) the meta count of 12b's decode step (``pos`` a
+   meta int32 scalar) equals ``FlopCounterMode`` over one real eager
+   step of 12b, and its argument bytes are within 12b's peak.
 
 Programs outlive runs (``repro_torch.core.graphs``): a second run of a
 shape captures nothing. Every ``Measured`` run (phases 5, 5w, 5s, 5m, 8b,
@@ -3535,6 +3553,19 @@ def stream_path_phase() -> list:
             raise AssertionError(f"repro_torch.analysis --check: astlint "
                                  f"{lint['rendered']}, programs {bad}, "
                                  f"{prog['violations']}")
+        decode = prog["model_steps"]
+        if [p["name"] for p in decode] != ["decode"] or not all(
+                p["ok"] and p["copy_back_bytes"] == 0 and not p["host_syncs"]
+                and not p["cpu_operands"] and p["device"].startswith("cuda")
+                for p in decode):
+            raise AssertionError(f"repro_torch.analysis --check: the decode "
+                                 f"step's audit {decode}")
+        log(f"[stream path] programlint on the card, the decode step "
+            f"(launch.steps.decode_body, granite-8b smoke): "
+            f"{decode[0]['n_ops']} ops, no host sync or CPU operand, cache "
+            f"leaves {decode[0]['arg_bytes'][0]:,} B, copy-back "
+            f"{decode[0]['copy_back_bytes']} B (written in place); "
+            f"widenings reported, not held: {decode[0]['widenings']}")
         log(f"[stream path] astlint over src/repro_torch on the card's "
             f"host: {lint['n_findings']} finding(s), {len(lint['new'])} "
             f"new, {lint['seconds']:.2f} s; programlint on the card: "
@@ -3614,10 +3645,20 @@ def loop(progs):
 
 def _analysis_controls() -> None:
     """Each control's source linted and its body audited on the card;
-    each must be flagged as ``ANALYSIS_CONTROLS`` says."""
+    each must be flagged as ``ANALYSIS_CONTROLS`` says. The decode
+    step's control (``programlint.DECODE_INT_POS``, a decode body that
+    reads the position on the host) must be flagged by both passes."""
     from repro_torch.analysis.astlint import lint_source
-    from repro_torch.analysis.programlint import audit_callable
+    from repro_torch.analysis.programlint import (audit_callable,
+                                                  decode_control)
     dev = torch.device("cuda")
+    found, audit = decode_control(dev)
+    flagged = [v for v in audit.violations() if "_local_scalar_dense" in v]
+    if found != ["host-sync"] or audit.ok or not flagged:
+        raise AssertionError(f"analysis control int(pos): lint {found}, "
+                             f"audit {audit.violations()}")
+    log(f"[stream path] analysis control int(pos) in the decode body on the "
+        f"card: lint {found}, audit {flagged}")
     state = (torch.arange(64, dtype=torch.int32, device=dev),
              torch.zeros(64, dtype=torch.bool, device=dev))
     for name, (src, rules, word) in ANALYSIS_CONTROLS.items():
@@ -4193,13 +4234,16 @@ def _rel_err(got, want) -> float:
                  / want.abs().max().clamp(min=1e-30))
 
 
-def _served(params, cfg, tokens, memory, impl=None) -> dict:
+def _served(params, cfg, tokens, memory, impl=None, eager=False) -> dict:
     """The forward over every token, prefill over all but the last two
     (caches for two more; rings of the window when every layer has one)
-    and two decode steps: {"full", "last", "caches" (leaves), "steps"}."""
+    and two decode steps through ``launch.steps.decode`` (captured on
+    the card), or through ``models.decode_step`` run eagerly with
+    ``eager``: {"full", "last", "caches" (leaves), "steps"}."""
+    from repro_torch.launch import steps as S
     from repro_torch.models import blocks
     from repro_torch.models import model as M
-    from repro_torch.tree_util import tree_leaves
+    from repro_torch.tree_util import tree_leaves, tree_map
     s = tokens.shape[1] - 2
     rings = all(blocks.window_for(cfg, g.kind) for g in M.layer_plan(cfg))
     mem = (M.encode(params, cfg, memory, impl=impl)
@@ -4207,11 +4251,13 @@ def _served(params, cfg, tokens, memory, impl=None) -> dict:
     full, _ = M.forward(params, cfg, tokens, memory=mem, impl=impl)
     last, caches = M.prefill(params, cfg, tokens[:, :s], memory=memory,
                              impl=impl, cache_len=None if rings else s + 2)
-    out = {"full": full, "last": last, "caches": tree_leaves(caches),
+    out = {"full": full, "last": last,
+           "caches": tree_leaves(tree_map(torch.clone, caches)),
            "steps": []}
+    step = M.decode_step if eager else S.decode
     for i in range(2):
-        logits, caches = M.decode_step(params, cfg, caches,
-                                       tokens[:, s + i:s + i + 1], s + i)
+        logits, caches = step(params, cfg, caches,
+                              tokens[:, s + i:s + i + 1], s + i)
         out["steps"].append(logits)
     return out
 
@@ -4243,10 +4289,26 @@ def serve_smoke_phase(dev) -> int:
             return None if x is None else x.to(dev)
 
         _zero_attention_counts()
-        gpu = _served(tree_map(cuda, params), cfg, cuda(tokens),
-                      cuda(memory))
+        moved = _graph_counts()
+        gpu_p = tree_map(cuda, params)
+        gpu = _served(gpu_p, cfg, cuda(tokens), cuda(memory))
         torch.cuda.synchronize()
         counts = _attention_counts()
+        moved = _graph_counts(moved)
+        if moved != (1, 2):
+            raise AssertionError(f"serve 12a {arch}: the two decode steps "
+                                 f"made (captures, replays) {moved}, "
+                                 f"expected one capture and two replays")
+        # the eager CUDA step on the same weights and prefill
+        eager = _served(gpu_p, cfg, cuda(tokens), cuda(memory),
+                        eager=True)
+        same = [torch.equal(a.argmax(-1), b.argmax(-1))
+                for a, b in zip(gpu["steps"], eager["steps"])]
+        gap = max(float((a - b).abs().max())
+                  for a, b in zip(gpu["steps"], eager["steps"]))
+        if not all(same):
+            raise AssertionError(f"serve 12a {arch}: the captured decode "
+                                 f"step's tokens are not the eager step's")
         want = 2 * attention_calls(cfg)        # the forward and prefill
         if counts != {"all": want, "sm90": 0, "f32": want}:
             raise AssertionError(f"serve 12a {arch}: attention launches "
@@ -4272,9 +4334,13 @@ def serve_smoke_phase(dev) -> int:
                          for a, w in gaps)
         log(f"[serve 12a] {cfg.name} ({cfg.family}): CUDA vs CPU "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-            + f" (limit {tol:g} of max |CPU|); {counts['f32']} f32 "
-            f"attention launches; prefill / decode consistent with the "
-            f"forward within {SERVE_CONSISTENCY:g}: {consistent}")
+            + f" (limit {tol:g} of max |CPU|; decode: the captured step "
+            f"on the card, the program set's eager body on the CPU); "
+            f"{counts['f32']} f32 attention launches; prefill / decode "
+            f"consistent with the forward within {SERVE_CONSISTENCY:g}: "
+            f"{consistent}; captured decode (1 capture, 2 replays) against "
+            f"the eager CUDA step: the same tokens, max |logit difference| "
+            f"{gap:.3e}")
         if max(errs.values()) > tol or not consistent:
             raise AssertionError(f"serve 12a {cfg.name}: CUDA != CPU "
                                  f"({errs}) or prefill / decode "
@@ -4321,9 +4387,18 @@ def recording(calls: list):
     return wrap
 
 
-def device_profile(label: str, fn) -> str:
+# the host's calls that put work on the card's stream (the profiler's
+# CPU-side runtime events): what a decode step costs the host in launches
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def device_profile(label: str, fn, out: dict = None) -> str:
     """``fn()`` once under torch.profiler: its kernels' device time against
-    its wall (busy share), and the attention kernel's share."""
+    its wall (busy share), the attention kernel's share, and the host's
+    launch calls (``HOST_LAUNCH_CALLS``). ``out`` gets {"busy",
+    "kernels", "host_launches", "graph_launches"}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4334,20 +4409,28 @@ def device_profile(label: str, fn) -> str:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    calls = {e.key: e.count for e in events if e.key in HOST_LAUNCH_CALLS}
+    host = sum(calls.values())
     total = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    if out is not None:
+        out.update(busy=total / wall / 1e3 if total > 0 else None,
+                   kernels=launches, host_launches=host,
+                   graph_launches=calls.get("cudaGraphLaunch", 0))
     if total <= 0:
-        return f"{label}: device time not measured (no kernels seen)"
+        return (f"{label}: device time not measured (no kernels seen); "
+                f"host launch calls {calls}")
     attn = [e for e in kernels if "flash_attention" in e.key]
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[serve 12b] {label}: {e.self_device_time_total / 1e3:9.3f} ms"
             f" {e.count:5d} launches  {e.key[:80]}")
-    launches = sum(e.count for e in kernels)
-    return (f"{label}: {total:.3f} ms of kernels ({launches} launches) in "
+    return (f"{label}: {total:.3f} ms of kernels ({launches} kernels) in "
             f"{wall * 1e3:.3f} ms under the profiler "
-            f"({total / wall / 1e3:.1%} busy); attention "
+            f"({total / wall / 1e3:.1%} busy); host launch calls {host} "
+            f"({calls}); attention "
             f"{sum(e.count for e in attn)} launches, {attn_ms:.3f} ms, "
             f"{attn_ms / total:.2%} of the kernel time")
 
@@ -4462,12 +4545,58 @@ def _twin(cfg, params, toks, what: str) -> float:
     return err
 
 
+def _graph_counts(since=None) -> tuple:
+    """(captures, replays) so far, or since ``since``."""
+    now = _engine_counts()[2:]
+    return now if since is None else (now[0] - since[0], now[1] - since[1])
+
+
+def event_span(fn) -> tuple:
+    """``fn()`` once, unprofiled: (host ms from its start to the end of its
+    work, ms between CUDA events recorded before and after it on the
+    stream). The span is the device's time on the step and any idle
+    gaps inside it."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def eager_generate(params, cfg, prompts, n_gen: int):
+    """``launch.serve.generate``'s prefill and greedy decode, each decode
+    step ``models.decode_step`` run eagerly (op by op):
+    (tokens (B, 1 + n_gen), mean seconds a step but the first)."""
+    from repro_torch.models import model as M
+    plen = prompts.shape[1]
+    logits, caches = M.prefill(params, cfg, prompts, cache_len=plen + n_gen)
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    toks, times = [tok], []
+    torch.cuda.synchronize()
+    for i in range(n_gen):
+        t0 = time.perf_counter()
+        logits, caches = M.decode_step(params, cfg, caches, tok, plen + i)
+        tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        toks.append(tok)
+    return (torch.cat(toks, dim=1).cpu().numpy(),
+            float(np.mean(times[1:] or times)))
+
+
 def serve_full_phase(dev) -> dict:
     """12b. Returns the bf16 attention kernel's launches in the served
     run and its numbers at the model's shape."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.configs import get_config
+    from repro_torch.core import graphs
     from repro_torch.data import SyntheticTokens
     from repro_torch.launch import serve
+    from repro_torch.launch import steps as S
     from repro_torch.models import model as M
     from repro_torch.models.params import count_params
     from repro_torch.tree_util import tree_map
@@ -4498,11 +4627,22 @@ def serve_full_phase(dev) -> dict:
     prompts = torch.from_numpy(data.batch_at(0)["tokens"]).to(dev)
     layers = attention_calls(cfg)
 
-    # the main path: counts zeroed just before, read just after
+    # the main path: counts zeroed just before, read just after; the
+    # program cache emptied first, so the decode step's capture is this
+    # run's
+    graphs.clear_programs()
+    moved = _graph_counts()
     _zero_attention_counts()
     out = serve.generate(params, cfg, prompts, n_gen)
     counts = _attention_counts()
     peak = torch.cuda.max_memory_allocated()
+    moved = _graph_counts(moved)
+    ps = graphs.cached_sets()[-1]
+    pool = ps.pool_bytes()
+    if "decode" not in ps or moved != (1, n_gen):
+        raise AssertionError(f"serve 12b: (captures, replays) {moved} in "
+                             f"the served run, expected one capture and "
+                             f"{n_gen} replays of the decode step")
     if counts != {"all": layers, "sm90": layers, "f32": 0}:
         raise AssertionError(f"serve 12b: attention launches {counts} in "
                              f"the served run, expected {layers} on the "
@@ -4514,18 +4654,38 @@ def serve_full_phase(dev) -> dict:
                              f"shape or range")
     log(f"[serve 12b] served B {b} x {plen} -> {n_gen} tokens (cold): "
         f"prefill {out.prefill_s:.4f} s, decode {out.steady_s * 1e3:.3f} "
-        f"ms/step (steps 2-{n_gen}; first {out.step_s[0] * 1e3:.3f} ms), "
+        f"ms/step (steps 2-{n_gen}, each one graph replay; the first "
+        f"{out.step_s[0] * 1e3:.3f} ms with the capture), "
         f"{b / out.steady_s:.1f} tok/s aggregate; peak device memory "
-        f"{peak:,} bytes ({peak / 2**30:.2f} GiB); flash_attention "
-        f"launches {counts['sm90']} in the run ({layers} layers: "
+        f"{peak:,} bytes ({peak / 2**30:.2f} GiB); the decode step's "
+        f"graph pool {pool:,} bytes ({pool / 2**30:.3f} GiB); captures "
+        f"{moved[0]}, replays {moved[1]}; flash_attention launches "
+        f"{counts['sm90']} in the run ({layers} layers: "
         f"{counts['sm90'] / layers:g} a prefill layer, 0 a decode step)")
+    moved = _graph_counts()
     warm = serve.generate(params, cfg, prompts, n_gen)
-    measured = dict(prefill_s=warm.prefill_s, peak=peak)
+    moved = _graph_counts(moved)
     if not np.array_equal(warm.tokens, out.tokens):
         raise AssertionError("serve 12b: a second run gave other tokens")
+    if moved != (0, n_gen):
+        raise AssertionError(f"serve 12b: the warm generation made "
+                             f"(captures, replays) {moved}, expected "
+                             f"(0, {n_gen})")
     log(f"[serve 12b] again (warm): prefill {warm.prefill_s:.4f} s, decode "
-        f"{warm.steady_s * 1e3:.3f} ms/step, {b / warm.steady_s:.1f} tok/s "
-        f"aggregate; the same tokens")
+        f"{warm.steady_s * 1e3:.3f} ms/step (first "
+        f"{warm.step_s[0] * 1e3:.3f} ms), {b / warm.steady_s:.1f} tok/s "
+        f"aggregate; captures 0, replays {moved[1]}; the same tokens")
+    eager, eager_s = eager_generate(params, cfg, prompts, n_gen)
+    if not np.array_equal(eager, out.tokens):
+        raise AssertionError("serve 12b: the captured decode step's tokens "
+                             "are not the eager step's")
+    log(f"[serve 12b] the same generation with models.decode_step run "
+        f"eagerly (op by op) on the same weights: decode "
+        f"{eager_s * 1e3:.3f} ms/step, {b / eager_s:.1f} tok/s; the "
+        f"same {n_gen + 1} tokens a row; captured / eager "
+        f"{warm.steady_s / eager_s:.3f}")
+    measured = dict(prefill_s=warm.prefill_s, peak=peak,
+                    decode_s=warm.steady_s)
 
     def last_logits(c, impl=None):
         return M.prefill(params, c, prompts, impl=impl)[0][:, -1].float()
@@ -4570,9 +4730,52 @@ def serve_full_phase(dev) -> dict:
                                      cache_len=plen + n_gen)))
     _, caches = M.prefill(params, cfg, prompts, cache_len=plen + n_gen)
     tok = prompts[:, -1:]
+    eager_caches = tree_map(torch.clone, caches)
+    prof = {"eager": {}, "captured": {}}
     log("[serve 12b] " + device_profile(
-        "decode step", lambda: M.decode_step(params, cfg, caches, tok,
-                                             plen)))
+        "eager decode step", lambda: M.decode_step(
+            params, cfg, eager_caches, tok, plen), prof["eager"]))
+    # the captured step as generate takes it: the prefill's caches go
+    # into the set's buffers at the first step, then each step is a
+    # token copy, a fill of pos and a replay (and the argmax)
+    logits, caches = S.decode(params, cfg, caches, tok, plen)
+    state = [caches, logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)]
+
+    def captured():
+        logits, state[0] = S.decode(params, cfg, state[0], state[1],
+                                    plen + 1)
+        state[1] = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+
+    moved = _graph_counts()
+    log("[serve 12b] " + device_profile("captured decode step", captured,
+                                        prof["captured"]))
+    span = event_span(captured)
+    moved = _graph_counts(moved)
+    got, eager_p = prof["captured"], prof["eager"]
+    log(f"[serve 12b] a captured decode step: {got['host_launches']} host "
+        f"launch calls ({got['graph_launches']} graph launch), "
+        f"{got['kernels']} kernels on the card, device busy "
+        + (f"{got['busy']:.1%}" if got["busy"] is not None else
+           "not measured by the profiler")
+        + f" under the profiler; unprofiled, CUDA events around the step "
+        f"span {span[1]:.3f} ms of its {span[0]:.3f} ms wall "
+        f"({span[1] / span[0]:.1%}); the eager step "
+        f"{eager_p['host_launches']} host launch calls, "
+        f"{eager_p['kernels']} kernels, "
+        + (f"{eager_p['busy']:.1%}" if eager_p["busy"] is not None else
+           "busy not measured"))
+    if moved != (0, 2) or got["graph_launches"] != 1 or not \
+            0 < got["host_launches"] < 10 <= eager_p["host_launches"]:
+        raise AssertionError(f"serve 12b: a captured decode step must be "
+                             f"one graph launch and under 10 host launch "
+                             f"calls (the eager step's profile must show "
+                             f"its own): {prof}, (captures, replays) "
+                             f"{moved}")
+    with FlopCounterMode(display=False) as fc:
+        M.decode_step(params, cfg, eager_caches, tok, plen + 1)
+    measured["decode_flops"] = int(fc.get_total_flops())
+    del eager_caches, state, logits
+    graphs.clear_programs()
     twin_p = tree_map(lambda a: a[:SERVE_TWIN[0]].clone(),
                       params["segments"][0])
     twin_p = {"embed": params["embed"], "segments": [twin_p]}
@@ -4731,12 +4934,16 @@ def _smoke_train_inputs(cfg, i: int, dev):
 @contextlib.contextmanager
 def recording_update(calls: list):
     """``launch.steps.train_update``, the update ``build_train_step``'s
-    step makes after its gradients, keeping each call's arguments."""
+    step makes after its gradients, keeping a copy of each call's
+    arguments (the update writes the parameters and AdamW state it is
+    given in place: they are donated)."""
     from repro_torch.launch import steps
+    from repro_torch.tree_util import tree_map
     real = steps.train_update
 
     def kept(*args):
-        calls.append(args)
+        calls.append(tree_map(lambda a: a.clone() if isinstance(
+            a, torch.Tensor) else a, args))
         return real(*args)
     steps.train_update = kept
     try:
@@ -4756,7 +4963,8 @@ def _train_steps_on(cfg, params, batch, dev, counted: list, moving=None):
     from repro_torch.launch import steps
     from repro_torch.optim import adamw_init
     from repro_torch.tree_util import tree_leaves, tree_map
-    p = tree_map(lambda a: a.to(dev), params)
+    # a copy: the steps update the parameters they are given in place
+    p = tree_map(lambda a: a.to(dev, copy=True), params)
     b = {k: v.to(dev) for k, v in batch.items()}
     (loss, _), grads = steps.value_and_grad(p, cfg, b)
     tokens = b["tokens"]
@@ -4785,7 +4993,8 @@ def card_update(args, dev, **faults) -> dict:
     opt_cfg, grads, params, state, warmup, total = args
     p, s = steps.train_update(
         dataclasses.replace(opt_cfg, **faults),
-        *(tree_map(lambda a: a.to(dev), t) for t in (grads, params, state)),
+        *(tree_map(lambda a: a.to(dev, copy=True), t)
+          for t in (grads, params, state)),
         warmup, total)
     return {"params": tree_leaves(p), "m": tree_leaves(s.m),
             "v": tree_leaves(s.v)}
@@ -5447,13 +5656,39 @@ def dryrun_phase(dev, served: dict, trained: dict) -> None:
     _count_line("(b, c) 13b pjit step", low, model_flops(cfg, shape),
                 pjit["step_s"], pjit["peak"])
     s_cfg = get_config(SERVE_ARCH)
-    b, plen, _ = SERVE_SHAPE
+    b, plen, n_gen = SERVE_SHAPE
     p_shape = ShapeSpec("prefill", plen, b, "prefill")
     p_low = steps.build_prefill_step(
         s_cfg, tmesh.parse_mesh(DRYRUN_SERVE_MESH, "meta"), p_shape).lower()
     _count_line(f"(b, c) 12b prefill ({s_cfg.name}, B {b} x {plen})", p_low,
                 model_flops(s_cfg, p_shape), served["measured"]["prefill_s"],
                 served["measured"]["peak"])
+
+    # (d) 12b's decode step counted on meta (pos a meta int32 scalar):
+    # its FLOPs are FlopCounterMode's over one real eager step of 12b
+    # (a graph replay dispatches no op to count)
+    got = served["measured"]
+    d_shape = ShapeSpec("decode", plen + n_gen, b, "decode")
+    d_low = steps.build_decode_step(
+        s_cfg, tmesh.parse_mesh(DRYRUN_SERVE_MESH, "meta"), d_shape).lower()
+    log(f"[dryrun 14] (d) 12b's decode step ({s_cfg.name}, B {b}, a cache "
+        f"of {plen + n_gen}, pos a meta int32 scalar): meta count "
+        f"{d_low.flops:,} FLOPs, {d_low.bytes:,} bytes moved unfused, in "
+        f"{d_low.host_s:.2f} s on the host (model_flops "
+        f"{model_flops(s_cfg, d_shape):,.0f}); FlopCounterMode over one "
+        f"real eager step on the card {got['decode_flops']:,}; equal: "
+        f"{d_low.flops == got['decode_flops']}; over the measured warm "
+        f"captured step ({got['decode_s'] * 1e3:.3f} ms) "
+        f"{d_low.flops / got['decode_s'] / 1e12:.2f} TFLOP/s; argument "
+        f"bytes {d_low.argument_bytes:,.0f} against the served peak "
+        f"{got['peak']:,}")
+    if d_low.flops != got["decode_flops"] or \
+            d_low.argument_bytes > got["peak"]:
+        raise AssertionError(f"dryrun 14 (d): the decode step's meta count "
+                             f"{d_low.flops:,} against the real step's "
+                             f"{got['decode_flops']:,}, argument bytes "
+                             f"{d_low.argument_bytes:,.0f} against the "
+                             f"peak {got['peak']:,}")
 
 
 def build_all() -> dict:

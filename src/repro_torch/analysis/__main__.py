@@ -20,7 +20,8 @@ command line:
    superchunk programs, built by the loop's own constructors at a tiny
    shape, run once each under an op recorder and audited for host
    syncs, widenings, CPU operands and (on the card) ``quack_scan``'s
-   launch counts.
+   launch counts; and the model zoo's decode step (``model_steps``),
+   audited for host syncs, CPU operands and copy-back bytes (0).
 3. **sanitizer** (``sanitizer``): one real windowed run (M=512, C=42
    chunks, K=8, ``debug_checks`` on) under the dispatch contract
    ``<= ceil(C/K)+2`` with zero implicit transfers, then a warm rerun of
@@ -61,8 +62,13 @@ def _astlint_section(root: str, baseline_path: str) -> dict:
 
 
 def _program_section(device) -> dict:
-    from .programlint import audit_engine
-    return audit_engine(device=device)
+    from .programlint import audit_decode, audit_engine
+    out = audit_engine(device=device)
+    decode = audit_decode(device)
+    out["model_steps"] = [decode.to_dict()]
+    out["violations"] = out["violations"] + decode.violations()
+    out["ok"] = not out["violations"]
+    return out
 
 
 def _sanitizer_section(device) -> dict:
@@ -148,8 +154,9 @@ def main(argv=None) -> int:
     if "jaxpr" in report:
         pr = report["jaxpr"]
         names = ", ".join(p["name"] for p in pr["programs"])
-        print(f"programlint: {len(pr['programs'])} program(s) [{names}] on "
-              f"{pr['shape']['device']} "
+        steps = ", ".join(p["name"] for p in pr["model_steps"])
+        print(f"programlint: {len(pr['programs'])} program(s) [{names}] "
+              f"and the model step(s) [{steps}] on {pr['shape']['device']} "
               + ("clean" if pr["ok"] else "VIOLATIONS"))
         for v in pr["violations"]:
             print(f"  {v}")

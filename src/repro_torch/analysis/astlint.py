@@ -53,9 +53,11 @@ package's format, grandfathers findings by fingerprint):
 
 Metadata is not a value: ``.shape``, ``.ndim``, ``.dtype``, ``.device``,
 ``.numel()``, ``.dim()``, ``.size()``, ``.data_ptr()``, ``len()``,
-``isinstance()``, identity tests (``is None``) and parameters annotated
-with a static type (``int``, ``bool``, ``str``, ``float``, a frozen
-dataclass) are read without a host sync.
+``isinstance()``, identity tests (``is None``), comparisons with string
+literals and a string literal's membership (``"bq" in p``, a parameter
+dict's keys), and parameters annotated with a static type (``int``,
+``bool``, ``str``, ``float``, ``torch.dtype``, a frozen dataclass) are
+read without a host sync.
 """
 
 from __future__ import annotations
@@ -821,7 +823,14 @@ def _is_cpu(e: ast.AST) -> bool:
 
 def _static_comparison(cmp_node: ast.Compare) -> bool:
     """True for a comparison against string / ``None`` literals (or
-    containers of them): config dispatch, not a read of a value."""
+    containers of them): config dispatch, not a read of a value; and for
+    a string literal's membership (``"bias" in p``): a tensor holds no
+    strings, so that reads a container's keys."""
+    if (isinstance(cmp_node.left, ast.Constant)
+            and isinstance(cmp_node.left.value, (str, bytes))
+            and all(isinstance(op, (ast.In, ast.NotIn))
+                    for op in cmp_node.ops)):
+        return True
     for comparator in cmp_node.comparators:
         consts = [c for c in ast.walk(comparator)
                   if isinstance(c, ast.Constant)]

@@ -33,6 +33,20 @@ the bytes of each argument, and the copy-back bytes, the state leaves a
 body returns as new tensors, which the capture copies into the state
 buffers on every replay (the port's counterpart of donation).
 
+Beside the engine's eight, ``audit_decode`` audits the model zoo's decode
+step, the body ``launch.steps.decode`` captures (``decode_body``, on a
+smoke model's prefill caches), under the rules that apply to a model
+step: host syncs, CPU operands on the card, and copy-back bytes, which
+must be 0 (the body writes every cache leaf in place: the JAX step's
+donated caches). Two engine rules do not apply there. The widening rule
+holds the simulator to int32 / bool / float32 end to end, as the JAX
+engine is; a model step computes in its config's dtype (float64 for the
+checks' oracles) and routes MoE tokens with torch's int64 ``topk`` /
+``argsort`` indices, the JAX model's int32 having no torch index
+counterpart, so its widenings are reported, not held. The launch rule
+counts ``quack_scan``, which a model step never calls; its decode
+attention is plain torch, as the JAX package's is.
+
 ``audit_engine`` returns a JSON-ready dict (the ``jaxpr`` section of
 ``ANALYSIS.json``, under the JAX report's name); the CLI fails
 ``--check`` when any audited program is not clean. ``estimate_dispatches``
@@ -50,6 +64,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["ProgramAudit", "audit_callable", "audit_engine",
+           "audit_decode", "decode_control", "DECODE_INT_POS",
            "estimate_dispatches", "BANNED_OPS"]
 
 # aten ops (overload packets) that wait for the device
@@ -93,25 +108,30 @@ class ProgramAudit:
     launches: Optional[int] = None         # quack_scan (on the card)
     launches_no_lost: Optional[int] = None  # of them, without the loss
     expected_launches: Optional[int] = None  # quorum
+    hold_widenings: bool = True            # False: reported only
+    max_copy_back: Optional[int] = None    # bytes a replay may copy back
 
     @property
     def ok(self) -> bool:
-        """Clean: no host sync, no widening, no CPU operand on the card,
-        and the launches the formula gives."""
-        return (not self.host_syncs and not self.widenings
-                and not self.cpu_operands
-                and (self.expected_launches is None
-                     or self.launches == self.expected_launches))
+        """Clean: no host sync, no widening (where held), no CPU operand
+        on the card, the launches the formula gives, and no more
+        copy-back bytes than allowed."""
+        return not self.violations()
 
     def violations(self) -> List[str]:
         out = [f"{self.name}: host sync {s}" for s in self.host_syncs]
-        out += [f"{self.name}: widening {w}" for w in self.widenings]
+        if self.hold_widenings:
+            out += [f"{self.name}: widening {w}" for w in self.widenings]
         out += [f"{self.name}: CPU operand {c} on {self.device}"
                 for c in self.cpu_operands]
         if (self.expected_launches is not None
                 and self.launches != self.expected_launches):
             out.append(f"{self.name}: quack_scan launches {self.launches}, "
                        f"expected {self.expected_launches}")
+        if (self.max_copy_back is not None
+                and self.copy_back_bytes > self.max_copy_back):
+            out.append(f"{self.name}: copy-back {self.copy_back_bytes} B a "
+                       f"replay, allowed {self.max_copy_back}")
         return out
 
     def to_dict(self) -> Dict[str, Any]:
@@ -264,6 +284,73 @@ def audit_callable(body, state, name: str, device=None, *, t: int = 0,
                                  if id(x) not in inputs]),
         launches=launches[0], launches_no_lost=launches[1],
         expected_launches=expected_launches if cuda else None)
+
+
+# the model step audited: the served model (granite-8b) at smoke size,
+# (batch, prompt tokens) of its prefill
+DECODE_ARCH = "granite-8b-smoke"
+DECODE_SHAPE = (2, 8)
+
+
+def audit_decode(device=None, body=None) -> ProgramAudit:
+    """Audit the model zoo's decode step on ``device`` (default: CUDA;
+    raises if it is absent): ``launch.steps.decode_body``, the body
+    ``launch.steps.decode`` captures, run once on clones of the caches a
+    prefill of ``DECODE_SHAPE`` gives (the attention scan, room for two
+    more tokens), at the next position, on ``DECODE_ARCH``'s weights
+    from seed 0. ``body``: a builder with ``decode_body``'s arguments to
+    audit in its place (``decode_control``). Held: host syncs, CPU
+    operands on the card, 0 copy-back bytes; widenings reported only
+    (the module docstring says why)."""
+    from ..configs import get_config
+    from ..core.simulator import _resolve_device
+    from ..launch.steps import decode_body
+    from ..models import model as M
+    from ..tree_util import tree_flatten
+    dev = _resolve_device(device)
+    cfg = get_config(DECODE_ARCH)
+    batch, prompt = DECODE_SHAPE
+    with torch.no_grad():
+        params = M.init_model(cfg, 0, dev)
+        tokens = (torch.arange(batch * prompt, dtype=torch.int32,
+                               device=dev) % cfg.vocab).reshape(batch,
+                                                                prompt)
+        _, caches = M.prefill(params, cfg, tokens, impl="scan",
+                              cache_len=prompt + 2)
+        leaves, treedef = tree_flatten(caches)
+        build = decode_body if body is None else body
+        audit = audit_callable(build(params, cfg, treedef,
+                                     tokens[:, -1:].clone()),
+                               tuple(leaves), "decode", dev, t=prompt)
+    return dataclasses.replace(audit, hold_widenings=False, max_copy_back=0)
+
+
+# the seeded control of the decode step's audit: a decode body that reads
+# the position on the host, what a capture of the decode step cannot do
+DECODE_INT_POS = """
+from repro_torch.launch.steps import decode_body
+
+def _build(params, cfg, treedef, token):
+    inner = decode_body(params, cfg, treedef, token)
+
+    def body(state, t0):
+        return inner(state, int(t0))
+    return body
+
+def step(progs, params, cfg, treedef, token, pos):
+    return progs.run("decode", _build(params, cfg, treedef, token), pos)
+"""
+
+
+def decode_control(device=None) -> Tuple[List[str], ProgramAudit]:
+    """``DECODE_INT_POS`` through both passes: (the linter's rules on its
+    source, ``audit_decode`` of its body on ``device``). Both must flag
+    the host read."""
+    from .astlint import lint_source
+    scope: Dict[str, Any] = {}
+    exec(compile(DECODE_INT_POS, "control_decode.py", "exec"), scope)
+    rules = [f.rule for f in lint_source(DECODE_INT_POS, "control_decode.py")]
+    return rules, audit_decode(device, body=scope["_build"])
 
 
 def estimate_dispatches(steps: int, chunk_steps: int, k: int) -> int:

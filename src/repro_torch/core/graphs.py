@@ -1,5 +1,6 @@
 """Captured programs: the simulator's chunk, superchunk and dense-block
-bodies as CUDA graphs, kept across runs.
+bodies, and the model zoo's decode step, as CUDA graphs, kept across
+runs.
 
 The JAX package compiles each of these bodies once with ``jax.jit`` and
 keeps the compiled programs in ``functools.lru_cache(maxsize=64)``
@@ -40,7 +41,10 @@ The graphs of one set share one memory pool, which lives as long as the
 set.
 
 The carried state is a ``NamedTuple`` of tensors, or a tuple of them
-(the simulator's ``(SimState, MetricsCarry)`` when it collects metrics).
+(the simulator's ``(SimState, MetricsCarry)`` when it collects metrics;
+the decode step's cache leaves, ``launch.steps.decode``). A body that
+writes its state in place and returns the same tensors is copied back
+nothing: the capture copies only the leaves it returns anew.
 
 Launch accounting: the kernel wrapper's counters
 (``kernels.quack_scan.quack_scan.launches`` / ``launches_no_lost``) move
@@ -53,6 +57,7 @@ whose results a span's overflow guard discarded.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, List, Tuple
 
@@ -63,7 +68,8 @@ from ..kernels.quack_scan import quack_scan as _quack_scan
 from .snapshot import explicit
 
 __all__ = ["Programs", "program_set", "clear_programs", "cached_sets",
-           "CACHE_SETS", "capture_count", "replay_count", "first_use_count"]
+           "cached_items", "drop_set", "CACHE_SETS", "capture_count",
+           "replay_count", "first_use_count"]
 
 # the kernel wrapper's launch counters a replay must move
 _COUNTERS = ("launches", "launches_no_lost")
@@ -110,6 +116,18 @@ def program_set(key: Hashable, build: Callable[[], "Programs"]
 def cached_sets() -> List["Programs"]:
     """The cached sets, least recently used first."""
     return list(_SETS.values())
+
+
+def cached_items() -> List[Tuple[Hashable, "Programs"]]:
+    """The cached sets with their keys, least recently used first."""
+    return list(_SETS.items())
+
+
+def drop_set(key: Hashable) -> None:
+    """Drop the cached set of ``key``, if there is one, with its graphs."""
+    ps = _SETS.pop(key, None)
+    if ps is not None:
+        ps.release()
 
 
 def clear_programs() -> None:
@@ -179,6 +197,10 @@ class Programs:
     tensors the bodies read (per-lane inputs, constants): a graph reads
     them by address, so they live as long as the set, and a run writes
     its own values into them in place.
+
+    A caller that holds the state between runs (a decode generation its
+    caches) takes it with ``lend``: the set is then held while any tensor
+    lent lives, and ``load`` refuses to overwrite it.
     """
 
     def __init__(self, state, device: torch.device, keep=()):
@@ -186,6 +208,7 @@ class Programs:
         self.keep = keep
         self._cuda = device.type == "cuda"
         self._progs: Dict[Hashable, _Captured] = {}
+        self._lent: Tuple[weakref.ref, ...] = ()
         if self._cuda:
             self._t0 = torch.zeros((), dtype=torch.int32, device=device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -199,12 +222,33 @@ class Programs:
     def load(self, state) -> None:
         """Copy ``state`` (a tree of the set's structure, of tensors or
         numpy arrays) into the state buffers, in place and in stream
-        order: the graphs keep reading the same addresses."""
+        order: the graphs keep reading the same addresses. Raises while
+        the set is held: its holder would read the state loaded."""
+        if self.held():
+            raise RuntimeError("Programs.load: the state is lent to a "
+                               "holder that still lives")
         copy_into(self.state, state)
 
-    def run(self, key: Hashable, body: Body, t: int) -> List[torch.Tensor]:
+    def lend(self) -> Tuple[torch.Tensor, ...]:
+        """The state's tensors as new aliases (views of the buffers) for
+        one holder, replacing any lent before."""
+        lent = tuple(t.view(t.shape) for t in _leaves(self.state))
+        self._lent = tuple(weakref.ref(t) for t in lent)
+        return lent
+
+    def held(self) -> bool:
+        """Whether a tensor of the last ``lend`` still lives."""
+        return any(r() is not None for r in self._lent)
+
+    def lent(self, tensors) -> bool:
+        """Whether ``tensors`` are those of the last ``lend``."""
+        return len(tensors) == len(self._lent) and all(
+            r() is t for r, t in zip(self._lent, tensors))
+
+    def run(self, key: Hashable, body: Body, t) -> List[torch.Tensor]:
         """Run program ``key`` (``body``, captured at its first use on a
-        CUDA device) from round ``t``; the new state replaces ``state``.
+        CUDA device) from round ``t`` (a Python int, or a 0-d integer
+        tensor on the set's device); the new state replaces ``state``.
         Returns the body's outputs. On a CUDA device these are the
         graph's own output buffers, rewritten by the next replay: read
         them (in stream order) before the next ``run``."""
@@ -212,8 +256,8 @@ class Programs:
             if key not in self._progs:
                 self._progs[key] = None
                 _FIRST_USES[0] += 1
-            self.state, outputs = body(self.state,
-                                       torch.tensor(t, dtype=torch.int32))
+            self.state, outputs = body(
+                self.state, torch.as_tensor(t, dtype=torch.int32))
             return outputs
         # before a capture too: its warm-up runs at this round (the set's
         # last round, from another run, may lie past this program's span)
@@ -246,6 +290,16 @@ class Programs:
                    for prog in self._progs.values() if prog is not None
                    for t in prog.outputs)
 
+    def pool_bytes(self) -> int:
+        """Device bytes of the set's graph memory pool, the segments the
+        captures allocated their intermediates and outputs from (0 on the
+        CPU)."""
+        if not self._cuda:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
+
     def release(self) -> None:
         """Drop every captured graph (and so its memory pool);
         ``clear_programs`` does this for every cached set."""
@@ -263,11 +317,19 @@ class Programs:
         torch.cuda.current_stream().wait_stream(stream)
         warm = _counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=stream):
-            new, outputs = body(self.state, self._t0)
-            for dst, src in zip(_leaves(self.state), _leaves(new)):
-                if src is not dst:
-                    dst.copy_(src)
+        # not torch.cuda.graph(...): it empties the allocator's caches
+        # first, so that the next eager work (a prefill after the decode
+        # step's capture) allocates every block anew
+        torch.cuda.synchronize()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(self._pool)
+            try:
+                new, outputs = body(self.state, self._t0)
+                for dst, src in zip(_leaves(self.state), _leaves(new)):
+                    if src is not dst:
+                        dst.copy_(src)
+            finally:
+                graph.capture_end()
         launches = {name: n - warm[name] for name, n in _counts().items()}
         _add_counts({name: before[name] - n
                      for name, n in _counts().items()})

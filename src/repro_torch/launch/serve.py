@@ -1,8 +1,11 @@
 """Batched greedy decode serving launcher.
 
-Prefills a batch of prompts, then decodes tokens step by step with the
-ring-buffer KV caches; prints the prefill time, ms per decode step and
-tokens/s. Runs on the card unless ``--device`` names another:
+Prefills a batch of prompts (eagerly), then decodes tokens step by step
+with the ring-buffer KV caches through ``launch.steps.decode``, the
+decode step as the JAX launcher jits it: on the card one captured CUDA
+graph replayed a step, its caches donated (on the CPU the same body,
+eagerly). Prints the prefill time, ms per decode step and tokens/s.
+Runs on the card unless ``--device`` names another:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
       --batch 4 --prompt-len 512 --gen 16
@@ -24,9 +27,10 @@ import torch
 
 from ..configs import ModelConfig, get_config
 from ..data import SyntheticTokens
-from ..models import decode_step, init_model, prefill
+from ..models import init_model, prefill
 from ..models.params import resolve_device
 from .mesh import parse_mesh
+from .steps import decode
 
 __all__ = ["Generation", "generate", "run", "main"]
 
@@ -68,7 +72,7 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int,
     out_tokens, times = [tok], []
     for i in range(gen):
         t0 = time.perf_counter()
-        logits, caches = decode_step(params, cfg, caches, tok, plen + i)
+        logits, caches = decode(params, cfg, caches, tok, plen + i)
         tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
         _sync(dev)
         times.append(time.perf_counter() - t0)

@@ -12,6 +12,22 @@ planner gives (``models.sharding.spec_for``) beside it.
 ``StepBundle.lower()`` is the counterpart of JAX's lowering: it counts
 the step on those ``meta`` inputs (``roofline.lowered``), allocating
 nothing.
+
+The two steps the JAX package compiles with donated arguments run here
+as it compiles them:
+
+* the train step (``donate_argnums=(0, 1)``) updates the parameters and
+  AdamW state it is given in place (``optim.adamw_update_``) and returns
+  them;
+* the decode step (``jax.jit`` with ``donate_argnums=(1,)``; ``pos`` a
+  traced int32 scalar, so one program serves every position) is
+  ``decode``: on a CUDA device one CUDA graph captured from a
+  ``core.graphs.Programs`` set and replayed once a step, its caches
+  written in place in the set's buffers. On the CPU the set runs the
+  same body eagerly; on ``meta`` (the dry run) the body runs alone.
+
+The prefill and the ddp step run eagerly (the JAX package jits them,
+without donation).
 """
 
 from __future__ import annotations
@@ -23,15 +39,18 @@ import torch
 from torch.profiler import record_function
 
 from ..configs.base import ModelConfig, ShapeSpec
+from ..core.graphs import (Programs, cached_items, drop_set,
+                           program_set)
 from ..models import model as M
 from ..models.sharding import DEFAULT_RULES, sharding_for
-from ..optim import (AdamWConfig, adamw_update, cosine_schedule,
+from ..optim import (AdamWConfig, adamw_update_, cosine_schedule,
                      opt_state_specs)
-from ..tree_util import tree_flatten, tree_map, tree_unflatten
+from ..tree_util import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["rules_for", "param_shardings", "value_and_grad",
-           "train_update", "build_train_step", "build_prefill_step",
-           "build_decode_step", "build_step", "StepBundle"]
+           "train_update", "decode", "decode_body", "build_train_step",
+           "build_prefill_step", "build_decode_step", "build_step",
+           "StepBundle"]
 
 
 def rules_for(cfg: ModelConfig, mesh) -> Dict[str, Any]:
@@ -104,11 +123,11 @@ def value_and_grad(params, cfg: ModelConfig, batch, *,
 def train_update(opt_cfg: AdamWConfig, grads, params, opt_state,
                  warmup: int, total_steps: int):
     """A train step's update after its gradients: AdamW at
-    ``cosine_schedule(opt_state.step, warmup, total_steps)``;
-    ``(params, opt_state)``."""
+    ``cosine_schedule(opt_state.step, warmup, total_steps)``, written in
+    place into ``params`` and ``opt_state`` (donated); returns them."""
     lr_scale = cosine_schedule(opt_state.step, warmup, total_steps)
     with record_function("train.adamw"):
-        return adamw_update(opt_cfg, grads, params, opt_state, lr_scale)
+        return adamw_update_(opt_cfg, grads, params, opt_state, lr_scale)
 
 
 def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
@@ -118,7 +137,10 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
                      ) -> StepBundle:
     """``(params, opt_state, batch) -> (params, opt_state, {"loss", "ce",
     "aux"})``: value and grad of ``loss_fn``, then AdamW at
-    ``cosine_schedule(opt_state.step, warmup, total_steps)``."""
+    ``cosine_schedule(opt_state.step, warmup, total_steps)``. The params
+    and optimiser state are donated, as the JAX package's
+    ``donate_argnums=(0, 1)``: updated in place and returned, so one set
+    of them is alive."""
     rules = rules_for(cfg, mesh)
     p_shard, p_shapes = param_shardings(cfg, mesh, rules)
     _, p_names = M.param_specs(cfg)
@@ -138,6 +160,113 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
                                                 b_shapes),
                       in_shardings=(p_shard, o_shard, b_shard),
                       mesh=mesh, rules=rules, shape=shape)
+
+
+def _layout(tensors) -> Tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _addresses(tensors) -> Tuple:
+    """Where a graph reads each tensor: address, shape, strides, dtype."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in tensors)
+
+
+def decode_body(params, cfg: ModelConfig, treedef, token):
+    """The decode step as a ``Programs`` body: ``body(cache leaves, pos) ->
+    (the same leaves, [logits])``, ``models.decode_step`` writing the
+    caches in place (so a capture copies nothing back) on ``token``,
+    which the set keeps."""
+    def body(state, t0):
+        logits, _ = M.decode_step(params, cfg,
+                                  tree_unflatten(treedef, list(state)),
+                                  token, t0)
+        return state, [logits]
+    return body
+
+
+# decode sets that no generation holds, kept (most recently used first)
+# for later generations; beyond them such a set is dropped with its
+# buffers and graph pool
+DECODE_SETS = 2
+
+
+@torch.no_grad()
+def decode(params, cfg: ModelConfig, caches, token, pos):
+    """One decode step as the JAX package compiles it: ``(logits (B,1,V),
+    caches)``, the caches donated. ``pos`` is a Python int or a 0-d
+    integer tensor on the token's device.
+
+    On a CUDA device the step replays one program of a
+    ``core.graphs.Programs`` set, captured at its first use. The set is
+    keyed by the device, ``cfg``, the caches' structure, shapes and
+    dtypes, the token's, and the address, shape, strides and dtype of
+    every parameter leaf (the graph reads them by address), and by a slot
+    number. The set's state is the cache leaves. Caches the set lent at
+    the last step are decoded on in place; other caches (a new
+    generation) are copied into a set of the key that no generation holds
+    (``Programs.load``), or a new slot's, and the set lends its buffers
+    as the returned caches (``Programs.lend``): what the caller passed in
+    is consumed, as with donation. A generation holds its set while any
+    cache tensor it was lent lives, so generations that interleave decode
+    on sets of their own, and one that follows a finished one of the same
+    key captures nothing. The captured body writes the caches in place,
+    so a replay copies nothing back; the token goes into a buffer the set
+    keeps, so a step costs the host one ``copy_`` of the token, one
+    ``fill_`` of ``pos`` and one graph launch. The logits are cloned out
+    of the graph's output buffer, which the next replay overwrites.
+
+    The set keeps no reference to the parameters: the caller's tree
+    holds them, and a replay happens only while tensors of the keyed
+    layout sit at the keyed addresses. What a set holds (cache buffers,
+    the token, the graph and its pool) lives while a generation holds
+    it; of the decode sets no generation holds, ``DECODE_SETS`` stay
+    cached and the older are dropped. The cache of sets
+    (``graphs.CACHE_SETS``, least recently used first) or
+    ``graphs.clear_programs()`` may drop one sooner.
+
+    On the CPU the set runs the same body eagerly; on ``meta`` (the dry
+    run's count) the body runs alone on the caches given."""
+    dev = token.device
+    if dev.type == "meta":
+        return M.decode_step(params, cfg, caches, token, pos)
+    leaves, treedef = tree_flatten(caches)
+    base = (dev, cfg, treedef, _layout(leaves), _layout([token]),
+            _addresses(tree_leaves(params)))
+    ps, lent = _decode_set(base, leaves, lambda: Programs(
+        tuple(torch.empty_like(x) for x in leaves), dev,
+        keep=(torch.empty_like(token),)))
+    tok = ps.keep[0]
+    tok.copy_(token)
+    logits = ps.run("decode", decode_body(params, cfg, treedef, tok),
+                    pos)[0]
+    if dev.type == "cuda":
+        logits = logits.clone()
+    return logits, tree_unflatten(treedef, list(lent))
+
+
+def _decode_set(base, leaves, build) -> Tuple[Programs, Tuple]:
+    """(the set, the caches it lends) for a decode step on ``leaves``: the
+    set of layout ``base`` that lent them, else the most recently used
+    one that no generation holds, else a new slot's, loaded with them."""
+    ours = [(k, ps) for k, ps in reversed(cached_items())
+            if k[0] == "decode" and k[1] == base]
+    for key, ps in ours:
+        if ps.lent(leaves):
+            program_set(key, build)             # most recently used
+            return ps, tuple(leaves)
+    free = [k for k, ps in ours if not ps.held()]
+    slots = {k[2] for k, _ in ours}
+    key = free[0] if free else (
+        "decode", base, min(set(range(len(ours) + 1)) - slots))
+    ps = program_set(key, build)
+    ps.load(tuple(leaves))
+    lent = ps.lend()
+    idle = [k for k, other in reversed(cached_items())
+            if k[0] == "decode" and not other.held()]
+    for k in idle[DECODE_SETS:]:
+        drop_set(k)
+    return ps, lent
 
 
 def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
@@ -160,16 +289,16 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
 
 def build_decode_step(cfg: ModelConfig, mesh,
                       shape: ShapeSpec) -> StepBundle:
+    """``(params, caches, token, pos) -> (logits, caches)``: ``decode``,
+    the caches donated; ``lower()`` counts its body on the ``meta``
+    inputs, ``pos`` a meta int32 scalar."""
     rules = rules_for(cfg, mesh)
     p_shard, p_shapes = param_shardings(cfg, mesh, rules)
     b_shapes, b_names = M.input_specs(cfg, shape)
     b_shard = _shardings_from(mesh, b_shapes, b_names, rules)
 
-    @torch.no_grad()
-    def serve_step(params, caches, token, pos: int):
-        # the caller gives the position as a Python int (``lower`` gives
-        # ``seq_len - 1``): a meta tensor has no value to read
-        return M.decode_step(params, cfg, caches, token, int(pos))
+    def serve_step(params, caches, token, pos):
+        return decode(params, cfg, caches, token, pos)
 
     return StepBundle(
         fn=serve_step,

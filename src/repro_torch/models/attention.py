@@ -7,7 +7,11 @@ the route to the hand-written kernel.
 * ``attention_triangular``: query block i reads only the KV range its
   causal/window mask can reach.
 * ``attention_decode``: q length 1 against a KV cache (full or a ring of
-  capacity ``window``); plain torch on every device.
+  capacity ``window``); plain torch on every device. ``update_kv_cache``
+  writes the new token's K/V into the caches it is given, at a position
+  held in a 0-d device tensor, so that one captured decode step serves
+  every position (the JAX package donates the caches to its jitted
+  step).
 * ``attention(impl=None)``: on a CUDA tensor,
   ``kernels.ops.flash_attention`` (``csrc/flash_attention_sm90.cu`` in
   bf16, ``csrc/flash_attention_f32_sm90.cu`` in f32); on a CPU tensor,
@@ -50,8 +54,9 @@ def _gqa_reshape(q, n_kv: int):
 
 def _scale(x, d: int):
     """``x * (1 / sqrt(d))`` in x's dtype, the factor first rounded to that
-    dtype, as JAX multiplies by a weakly typed Python float."""
-    return x * float(torch.tensor(1.0 / math.sqrt(d), dtype=x.dtype))
+    dtype, as JAX multiplies by a weakly typed Python float. The factor is
+    a 0-d CPU tensor, so a captured step holds it as a constant."""
+    return x * torch.tensor(1.0 / math.sqrt(d), dtype=x.dtype)
 
 
 def _mask(q_pos, k_pos, causal: bool, window: int):
@@ -265,7 +270,8 @@ def attention_decode(q, k_cache, v_cache, *, window: int = 0,
     """Single-token decode: q (B,1,H,D) against a cache (B,S,KV,D).
 
     SWA caches are ring buffers of capacity == window, so they arrive here
-    already window-sized; ``valid_len`` masks unwritten slots.
+    already window-sized; ``valid_len`` (a Python int or a 0-d integer
+    tensor on q's device) masks unwritten slots.
     """
     b, _, h, d = q.shape
     s, n_kv = k_cache.shape[1], k_cache.shape[2]
@@ -282,10 +288,12 @@ def attention_decode(q, k_cache, v_cache, *, window: int = 0,
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
-def update_kv_cache(k_cache, v_cache, k_new, v_new, pos: int):
-    """New caches with K/V written at ring position ``pos % capacity``."""
-    write = pos % k_cache.shape[1]
-    k_cache, v_cache = k_cache.clone(), v_cache.clone()
-    k_cache[:, write:write + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, write:write + 1] = v_new.to(v_cache.dtype)
+def update_kv_cache(k_cache, v_cache, k_new, v_new, pos: torch.Tensor):
+    """Write K/V (B,1,KV,D) into the caches it is given, at ring position
+    ``pos % capacity``; ``pos`` is a 0-d integer tensor on the caches'
+    device. Returns the same caches (the JAX package's
+    ``dynamic_update_slice`` on donated buffers)."""
+    write = (pos % k_cache.shape[1]).reshape(1).long()
+    k_cache.index_copy_(1, write, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, write, v_new.to(v_cache.dtype))
     return k_cache, v_cache

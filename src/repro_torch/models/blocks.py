@@ -124,23 +124,24 @@ def attn_fwd(p, x, cfg: ModelConfig, *, positions, window: int,
     return out, (k, v)
 
 
-def attn_decode_fwd(p, x, cfg: ModelConfig, *, cache, pos: int,
+def attn_decode_fwd(p, x, cfg: ModelConfig, *, cache, pos: torch.Tensor,
                     window: int, static_kv: bool = False):
-    """One-token decode. cache = (k_cache, v_cache); pos = write index."""
+    """One-token decode. cache = (k_cache, v_cache), written in place;
+    pos = the write index, a 0-d int32 tensor on x's device."""
     q, k_new, v_new = _qkv(p, x, x, cfg)
     k_cache, v_cache = cache
     if static_kv:
         # cross-attention: the cache holds the projected memory
         o = attention_decode(q, k_cache, v_cache, window=0)
     else:
-        posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                          device=x.device)
+        posv = pos.reshape(1, 1).expand(x.shape[0], 1)
         q = rope(q, posv, cfg.rope_theta)
         k_new = rope(k_new, posv, cfg.rope_theta)
         k_cache, v_cache = update_kv_cache(k_cache, v_cache, k_new, v_new,
                                            pos)
         o = attention_decode(q, k_cache, v_cache, window=window,
-                             valid_len=min(pos + 1, k_cache.shape[1]))
+                             valid_len=torch.clamp(pos + 1,
+                                                   max=k_cache.shape[1]))
     o = _gated(p, o)
     out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
     return out, (k_cache, v_cache)
@@ -495,59 +496,61 @@ def block_fwd(p, x, cfg: ModelConfig, kind: str, *, positions,
     return x, aux, new_carry
 
 
-def block_decode(p, x, cfg: ModelConfig, kind: str, *, cache, pos: int):
-    """One-token decode. cache is a dict; returns (x, new_cache)."""
+def block_decode(p, x, cfg: ModelConfig, kind: str, *, cache,
+                 pos: torch.Tensor):
+    """One-token decode. ``cache`` is a dict whose tensors are written in
+    place (K/V at ring slot ``pos % capacity``, the recurrent state
+    leaves replaced); returns (x, cache)."""
     window = window_for(cfg, kind)
-    new_cache: Dict[str, Any] = {}
     if kind == "rwkv":
         h, st, xp = rwkv_time_mix(p["tm"], rmsnorm(x, p["ln1"], cfg.norm_eps),
                                   cfg, cache["tm_state"], cache["tm_xprev"])
-        new_cache["tm_state"], new_cache["tm_xprev"] = st, xp
+        cache["tm_state"].copy_(st)
+        cache["tm_xprev"].copy_(xp)
         x = x + h
         h, xp2 = rwkv_channel_mix(p["cm"],
                                   rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
                                   cache["cm_xprev"])
-        new_cache["cm_xprev"] = xp2
-        return x + h, new_cache
+        cache["cm_xprev"].copy_(xp2)
+        return x + h, cache
     if kind in ("hybrid", "hybrid_global"):
         xin = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        ao, kvc = attn_decode_fwd(p["attn"], xin, cfg,
-                                  cache=(cache["k"], cache["v"]), pos=pos,
-                                  window=window)
-        new_cache["k"], new_cache["v"] = kvc
+        ao, _ = attn_decode_fwd(p["attn"], xin, cfg,
+                                cache=(cache["k"], cache["v"]), pos=pos,
+                                window=window)
         so, sstate = ssm_fwd(p["ssm"], xin, cfg, cache["ssm_state"])
-        new_cache["ssm_state"] = sstate
+        cache["ssm_state"].copy_(sstate)
         x = x + _hybrid_mix(p, ao, so, cfg)
         x = x + _mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-        return x, new_cache
-    h, kvc = attn_decode_fwd(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
-                             cfg, cache=(cache["k"], cache["v"]), pos=pos,
-                             window=window)
-    new_cache["k"], new_cache["v"] = kvc
+        return x, cache
+    h, _ = attn_decode_fwd(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                           cfg, cache=(cache["k"], cache["v"]), pos=pos,
+                           window=window)
     x = x + h
     if kind in ("dec", "cross"):
+        # the projected memory (xk, xv) is read, never written
         h, _ = attn_decode_fwd(p["xattn"],
                                rmsnorm(x, p["lnx"], cfg.norm_eps), cfg,
                                cache=(cache["xk"], cache["xv"]), pos=pos,
                                window=0, static_kv=True)
-        new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
         x = x + h
     if kind in ("moe", "moe_swa"):
         h, _ = moe_ffn(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
         x = x + h
     else:
         x = x + _mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-    return x, new_cache
+    return x, cache
 
 
-def block_decode_cross(p, x, cfg: ModelConfig, *, cache, pos: int):
-    """Decode through a VLM 'cross' block (no self-attention)."""
+def block_decode_cross(p, x, cfg: ModelConfig, *, cache, pos: torch.Tensor):
+    """Decode through a VLM 'cross' block (no self-attention); its cache
+    is read only."""
     h, _ = attn_decode_fwd(p["xattn"], rmsnorm(x, p["lnx"], cfg.norm_eps),
                            cfg, cache=(cache["xk"], cache["xv"]), pos=pos,
                            window=0, static_kv=True)
     x = x + h
     x = x + _mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-    return x, dict(cache)
+    return x, cache
 
 
 # --------------------------------------------------------------------------

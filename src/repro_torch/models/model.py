@@ -11,9 +11,10 @@ layer of such a segment runs under activation checkpointing when
 gradients are recorded (the JAX package's ``jax.checkpoint`` of the scan
 body; ``remat_policy="dots"`` keeps the matmul outputs, as
 ``dots_with_no_batch_dims_saveable`` does). Recurrent families (rwkv /
-hybrid) thread their state through the blocks; decode threads per-layer
-caches. ``param_specs`` / ``cache_specs`` / ``input_specs`` declare
-shapes and dtypes as ``meta`` tensors, with their logical axis names.
+hybrid) thread their state through the blocks; decode writes the
+per-layer caches in place. ``param_specs`` / ``cache_specs`` /
+``input_specs`` declare shapes and dtypes as ``meta`` tensors, with their
+logical axis names.
 """
 
 from __future__ import annotations
@@ -158,10 +159,6 @@ def _zero_carry(cfg: ModelConfig, kind: str, batch: int, dev):
 def _layer(tree, i: int):
     """Layer i's view of a stacked (count, ...) tree."""
     return tree_map(lambda a: a[i], tree)
-
-
-def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
-    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
 # matmul outputs without batch dims (a bmm of batch 1 is torch.einsum's
@@ -340,31 +337,31 @@ def prefill(params, cfg: ModelConfig, tokens, *, memory=None,
     return logits[:, -1:], caches
 
 
-def decode_step(params, cfg: ModelConfig, caches, token, pos: int):
-    """One decode step. token: (B,1) int; pos: the next index. Returns
-    (logits (B,1,V), new caches); SWA caches are ring buffers (write at
-    pos % window)."""
+def decode_step(params, cfg: ModelConfig, caches, token, pos):
+    """One decode step. token: (B,1) int; pos: the next index, a 0-d int32
+    tensor on the token's device (a Python int is made one), so that one
+    captured step serves every position. Writes the caches it is given in
+    place, each layer of a stacked segment into its view of the stacked
+    cache, and returns (logits (B,1,V), those caches): the JAX package's
+    step with the caches donated. SWA caches are ring buffers (written at
+    pos % capacity)."""
     dtype = torch_dtype(cfg.dtype)
     x = _embed(params, token, dtype)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
 
     def one(p, c, kind, x):
         if kind == "cross":
-            return B.block_decode_cross(p, x, cfg, cache=c, pos=pos)
-        return B.block_decode(p, x, cfg, kind, cache=c, pos=pos)
+            return B.block_decode_cross(p, x, cfg, cache=c, pos=pos)[0]
+        return B.block_decode(p, x, cfg, kind, cache=c, pos=pos)[0]
 
-    new_caches = []
-    for seg_p, seg_c, seg in zip(params["segments"], caches,
-                                 layer_plan(cfg)):
+    for j, seg in enumerate(layer_plan(cfg)):
+        seg_p, seg_c = params["segments"][j], caches[j]
         if seg.count == 1:
-            x, nc = one(seg_p, seg_c, seg.kind, x)
-            new_caches.append(nc)
+            x = one(seg_p, seg_c, seg.kind, x)
             continue
-        ncs = []
         for i in range(seg.count):
-            x, nc = one(_layer(seg_p, i), _layer(seg_c, i), seg.kind, x)
-            ncs.append(nc)
-        new_caches.append(_stack(ncs))
-    return _logits(params, x, cfg, dtype), new_caches
+            x = one(_layer(seg_p, i), _layer(seg_c, i), seg.kind, x)
+    return _logits(params, x, cfg, dtype), caches
 
 
 # --------------------------------------------------------------------------

@@ -6,6 +6,11 @@ f32 parameters, updates computed in f32 and cast back to each
 parameter's dtype); not ``torch.optim.AdamW``, whose formula differs.
 The m/v trees have the parameters' structure, and their declarations
 (``opt_state_specs``, ``meta`` tensors) the parameters' logical names.
+
+``adamw_update_`` writes the new parameters, m, v and step into the
+ones it is given (the JAX train step's ``donate_argnums=(0, 1)``);
+``adamw_update`` runs it on copies, so the old ones stay as they were,
+as the JAX package's undonated callers see them.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from ..tree_util import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "global_norm", "opt_state_specs"]
+           "adamw_update_", "global_norm", "opt_state_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,36 +76,40 @@ def global_norm(tree) -> torch.Tensor:
 def adamw_update(cfg: AdamWConfig, grads, params, state: AdamWState,
                  lr_scale: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, AdamWState]:
+    """New parameters and state beside the old ones, which stay as they
+    were: ``adamw_update_`` on copies of them."""
+    return adamw_update_(cfg, grads, tree_map(torch.clone, params),
+                         AdamWState(step=state.step.clone(),
+                                    m=tree_map(torch.clone, state.m),
+                                    v=tree_map(torch.clone, state.v)),
+                         lr_scale)
+
+
+def adamw_update_(cfg: AdamWConfig, grads, params, state: AdamWState,
+                  lr_scale: Optional[torch.Tensor] = None
+                  ) -> Tuple[Any, AdamWState]:
+    """AdamW on donated arguments: the parameters, m, v and step are
+    written in place, leaf by leaf, and returned; the gradients are read
+    only. No second set of parameters and moments is alive at once."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    step = state.step + 1
+    step = state.step.add_(1)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
     lr = cfg.lr * (lr_scale if lr_scale is not None else 1.0)
-
-    def upd(g, p, m, v):
-        g = g.to(torch.float32) * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        mh = m / b1c
-        vh = v / b2c
-        delta = mh / (torch.sqrt(vh) + cfg.eps)
-        delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
 
     flat_g, treedef = tree_flatten(grads)
     flat_p, flat_m, flat_v = (_leaves_as(treedef, t, what) for t, what in
                               ((params, "params"), (state.m, "m"),
                                (state.v, "v")))
-    new_p, new_m, new_v = [], [], []
     for g, p, m, v in zip(flat_g, flat_p, flat_m, flat_v):
-        np_, nm, nv = upd(g, p, m, v)
-        new_p.append(np_)
-        new_m.append(nm)
-        new_v.append(nv)
-    unf = tree_unflatten
-    return unf(treedef, new_p), AdamWState(
-        step=step, m=unf(treedef, new_m), v=unf(treedef, new_v))
+        g = g.to(torch.float32) * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        delta = delta + cfg.weight_decay * p.to(torch.float32)
+        p.copy_(p.to(torch.float32) - lr * delta)
+    return params, state
 
 
 def _leaves_as(treedef, tree, what: str):

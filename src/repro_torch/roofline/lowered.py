@@ -66,11 +66,9 @@ class Lowered:
 
 
 def lower(bundle) -> Lowered:
-    """Count ``bundle``'s step on its ``meta`` inputs (a decode step gets
-    its position as the Python int ``seq_len - 1``)."""
+    """Count ``bundle``'s step on its ``meta`` inputs (a decode step's
+    position is its meta int32 scalar, as the JAX step traces it)."""
     args = tuple(bundle.in_shapes)
-    if bundle.shape is not None and bundle.shape.kind == "decode":
-        args = args[:-1] + (bundle.shape.seq_len - 1,)
     t0 = time.perf_counter()
     with Counter(scale_loops=True) as c:
         bundle.fn(*args)

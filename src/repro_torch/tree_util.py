@@ -45,7 +45,8 @@ def _children(node) -> Tuple[Any, Tuple, List[Tuple[str, Any]]]:
     if isinstance(node, dict):
         keys = tuple(sorted(node))
         return dict, keys, [(f"[{k!r}]", node[k]) for k in keys]
-    if _is_namedtuple(node):
+    # a node's type, not a tensor's value
+    if _is_namedtuple(node):  # analysis: ignore[tensor-branch]
         return type(node), (), [(f".{f}", getattr(node, f))
                                 for f in node._fields]
     if isinstance(node, (list, tuple)):
@@ -59,7 +60,8 @@ def tree_flatten_with_path(tree) -> Tuple[List[Tuple[str, Any]], TreeDef]:
 
     def walk(node, path: Tuple[str, ...]) -> TreeDef:
         kind, keys, kids = _children(node)
-        if kind == _LEAF:
+        # a node's kind, not a tensor's value
+        if kind == _LEAF:  # analysis: ignore[tensor-branch]
             out.append(("/".join(p.strip("[]'.") for p in path), node))
             return TreeDef(_LEAF)
         return TreeDef(kind, keys, tuple(walk(c, path + (k,))
@@ -115,8 +117,9 @@ def tree_flatten_up_to(treedef: TreeDef, tree) -> List[Any]:
             out.append(node)
             return
         kind, keys, kids = _children(node)
-        if kind != td.kind or keys != td.keys or len(kids) != len(
-                td.children):
+        # the trees' structures, not a tensor's value
+        if (kind, keys, len(kids)) != (  # analysis: ignore[tensor-branch]
+                td.kind, td.keys, len(td.children)):
             raise ValueError(f"tree structure {kind} {keys} does not match "
                              f"{td.kind} {td.keys}")
         for child_td, (_, child) in zip(td.children, kids):

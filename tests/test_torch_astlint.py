@@ -10,7 +10,11 @@ file parses as the JAX package parses it, the port's tree lints clean
 modulo its own baseline (from any working directory), and a copy of the
 tree with a ``.item()`` seeded in ``_protocol_step`` and another in a
 ``core/quack.py`` function that only an import reaches is caught, under
-both symbols, by the ``--check`` gate.
+both symbols, by the ``--check`` gate. The decode step's body
+(``launch.steps.decode_body``, given to ``Programs.run``) is a capture
+context: a copy of the tree whose body reads ``int(pos)``, or whose
+attention branches on the position, is caught; a string literal's
+membership in a parameter dict (``"bq" in p``) reads keys, no value.
 """
 
 import os
@@ -221,6 +225,28 @@ def test_rule_tensor_branch():
     _none(closed.format(LINE="carry = carry + plan.needs[k][0]"))
 
 
+def test_rule_tensor_branch_spares_a_string_membership():
+    """``"bq" in p`` reads a parameter dict's keys (a tensor holds no
+    strings); a tensor's membership test is still a read."""
+    src = """
+        import torch
+
+        def _build(p):
+            def body(carry, t0):
+                {LINE}
+                    carry = carry + p["bq"]
+                return carry, []
+
+            return body
+
+        def loop(progs, p):
+            return progs.run(("k",), _build(p), 0)
+    """
+    _none(src.format(LINE='if "bq" in p:'))
+    _none(src.format(LINE='if "bq" not in p:'))
+    _one(src.format(LINE="if t0 in p:"), "tensor-branch")
+
+
 def test_rule_tensor_branch_through_the_graph_block():
     """The statements inside ``with torch.cuda.graph(...)`` are a capture
     context; identity tests there are not value reads."""
@@ -400,3 +426,32 @@ def test_seeded_copy_is_caught_across_modules(tmp_path, capsys):
     assert rc == 1
     assert "[host-sync]" in out and "hint:" in out
     assert "core/quack.py" in out and "core/simulator.py" in out
+
+
+@pytest.mark.parametrize("seed", ["int_pos", "branch_on_pos"])
+def test_seeded_decode_step_is_caught(seed, tmp_path, capsys):
+    """The decode step's body reaches ``models`` through the package's
+    imports: ``int(pos)`` in the body and a Python ``if`` on the
+    position in ``blocks.attn_decode_fwd`` are each caught."""
+    copy = tmp_path / "src" / "repro_torch"
+    shutil.copytree(PORT, copy)
+    if seed == "int_pos":
+        path, old, new = ("launch/steps.py", "    def body(state, t0):\n",
+                          "    def body(state, t0):\n        t0 = int(t0)\n")
+        want = ("host-sync", "launch/steps.py", "decode_body.body")
+    else:
+        path, old, new = ("models/blocks.py",
+                          "        posv = pos.reshape(1, 1)",
+                          "        if pos > 0:\n            x = x + 1\n"
+                          "        posv = pos.reshape(1, 1)")
+        want = ("tensor-branch", "models/blocks.py", "attn_decode_fwd")
+    target = copy / path
+    text = target.read_text()
+    assert text.count(old) == 1
+    target.write_text(text.replace(old, new))
+    found = [(f.rule, f.path.split("repro_torch/")[1], f.symbol)
+             for f in lint_tree(str(copy))]
+    assert found == [want], found
+    assert main(["--check", "--skip-engine", "--root", str(copy),
+                 "--baseline", DEFAULT_BASELINE]) == 1
+    assert want[0] in capsys.readouterr().out

@@ -18,7 +18,11 @@ MoE dense against scatter, the blocked recurrent scans against the
 per-step ones,
 the port's own prefill / decode consistency, a bf16 case, the init
 distribution against the JAX package's (the stacked fan-in quirk
-included), and the CPU / CUDA rule of the entry points.
+included), and the CPU / CUDA rule of the entry points. The decode step
+writes the caches it is given in place (the JAX step's donated caches):
+over three steps, a sliding-window ring's wrap-around included, it is
+bit for bit the functional step it replaced (kept below as the oracle),
+and every cache leaf keeps its storage.
 
 bf16 (granite-8b smoke, ``dtype="bfloat16"``): both packages round to
 bf16 at every op, but XLA's CPU backend keeps excess precision across
@@ -327,3 +331,149 @@ def test_kernel_route_refuses_misaligned_masks():
     got = tattn.attention(q, k, k, causal=False, impl="kernel")
     want = tattn.attention(q, k, k, causal=False, impl="scan")
     assert _rel(got, want) <= 1e-5
+
+
+# ------------------------------------------- the functional decode step
+# The decode step as it was before it wrote its caches in place: new
+# caches built beside the old ones (K/V cloned at every layer, stacked
+# segments stacked anew), the position a Python int. Kept as the oracle
+# of the in-place step.
+def _functional_update_kv_cache(k_cache, v_cache, k_new, v_new, pos: int):
+    write = pos % k_cache.shape[1]
+    k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    k_cache[:, write:write + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, write:write + 1] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def _functional_attn_decode_fwd(p, x, cfg, *, cache, pos: int, window: int,
+                                static_kv: bool = False):
+    q, k_new, v_new = blocks._qkv(p, x, x, cfg)
+    k_cache, v_cache = cache
+    if static_kv:
+        o = tattn.attention_decode(q, k_cache, v_cache, window=0)
+    else:
+        posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32)
+        q = blocks.rope(q, posv, cfg.rope_theta)
+        k_new = blocks.rope(k_new, posv, cfg.rope_theta)
+        k_cache, v_cache = _functional_update_kv_cache(k_cache, v_cache,
+                                                       k_new, v_new, pos)
+        o = tattn.attention_decode(q, k_cache, v_cache, window=window,
+                                   valid_len=min(pos + 1,
+                                                 k_cache.shape[1]))
+    o = blocks._gated(p, o)
+    out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(x.dtype))
+    return out, (k_cache, v_cache)
+
+
+def _functional_block_decode(p, x, cfg, kind, *, cache, pos: int):
+    window = blocks.window_for(cfg, kind)
+    norm = blocks.rmsnorm
+    new = {}
+    if kind == "rwkv":
+        h, st, xp = blocks.rwkv_time_mix(p["tm"], norm(x, p["ln1"],
+                                                       cfg.norm_eps),
+                                         cfg, cache["tm_state"],
+                                         cache["tm_xprev"])
+        new["tm_state"], new["tm_xprev"] = st, xp
+        x = x + h
+        h, new["cm_xprev"] = blocks.rwkv_channel_mix(
+            p["cm"], norm(x, p["ln2"], cfg.norm_eps), cfg, cache["cm_xprev"])
+        return x + h, new
+    if kind in ("hybrid", "hybrid_global"):
+        xin = norm(x, p["ln1"], cfg.norm_eps)
+        ao, (new["k"], new["v"]) = _functional_attn_decode_fwd(
+            p["attn"], xin, cfg, cache=(cache["k"], cache["v"]), pos=pos,
+            window=window)
+        so, new["ssm_state"] = blocks.ssm_fwd(p["ssm"], xin, cfg,
+                                              cache["ssm_state"])
+        x = x + blocks._hybrid_mix(p, ao, so, cfg)
+        x = x + blocks._mlp(p["mlp"], norm(x, p["ln2"], cfg.norm_eps))
+        return x, new
+    h, (new["k"], new["v"]) = _functional_attn_decode_fwd(
+        p["attn"], norm(x, p["ln1"], cfg.norm_eps), cfg,
+        cache=(cache["k"], cache["v"]), pos=pos, window=window)
+    x = x + h
+    if kind in ("dec", "cross"):
+        h, _ = _functional_attn_decode_fwd(
+            p["xattn"], norm(x, p["lnx"], cfg.norm_eps), cfg,
+            cache=(cache["xk"], cache["xv"]), pos=pos, window=0,
+            static_kv=True)
+        new["xk"], new["xv"] = cache["xk"], cache["xv"]
+        x = x + h
+    if kind in ("moe", "moe_swa"):
+        x = x + blocks.moe_ffn(p["moe"], norm(x, p["ln2"], cfg.norm_eps),
+                               cfg)[0]
+    else:
+        x = x + blocks._mlp(p["mlp"], norm(x, p["ln2"], cfg.norm_eps))
+    return x, new
+
+
+def _functional_block_decode_cross(p, x, cfg, *, cache, pos: int):
+    h, _ = _functional_attn_decode_fwd(
+        p["xattn"], blocks.rmsnorm(x, p["lnx"], cfg.norm_eps), cfg,
+        cache=(cache["xk"], cache["xv"]), pos=pos, window=0, static_kv=True)
+    x = x + h
+    x = x + blocks._mlp(p["mlp"], blocks.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x, dict(cache)
+
+
+def _functional_decode_step(params, cfg, caches, token, pos: int):
+    dtype = tparams.torch_dtype(cfg.dtype)
+    x = tmodel._embed(params, token, dtype)
+
+    def one(p, c, kind, x):
+        if kind == "cross":
+            return _functional_block_decode_cross(p, x, cfg, cache=c,
+                                                  pos=pos)
+        return _functional_block_decode(p, x, cfg, kind, cache=c, pos=pos)
+
+    new_caches = []
+    for seg_p, seg_c, seg in zip(params["segments"], caches,
+                                 tmodel.layer_plan(cfg)):
+        if seg.count == 1:
+            x, nc = one(seg_p, seg_c, seg.kind, x)
+            new_caches.append(nc)
+            continue
+        ncs = []
+        for i in range(seg.count):
+            x, nc = one(tmodel._layer(seg_p, i), tmodel._layer(seg_c, i),
+                        seg.kind, x)
+            ncs.append(nc)
+        new_caches.append({k: torch.stack([t[k] for t in ncs])
+                           for k in ncs[0]})
+    return tmodel._logits(params, x, cfg, dtype), new_caches
+
+
+def test_in_place_decode_is_the_functional_step_bit_for_bit(case):
+    """Three steps of ``decode_step`` (``pos`` a 0-d int32 tensor) on a
+    prefill's caches against the functional step on another prefill of
+    the same prompt: logits and every cache leaf bit for bit, the caches
+    returned the ones given, every leaf at its own address throughout.
+    mixtral-8x22b's smoke model keeps every layer's cache as a ring of
+    its 16-token window (no ``cache_len``): positions 16-18 write slots
+    0-2, the wrap-around."""
+    cfg, params = case["cfg"], case["params"]
+    tokens, mem = _inputs(cfg, seed=1, s=S + 3)
+    rings = all(blocks.window_for(cfg, seg.kind)
+                for seg in tmodel.layer_plan(cfg))
+    if case["arch"] == "mixtral-8x22b":
+        assert rings and cfg.sliding_window == S
+
+    def prefill():
+        return tmodel.prefill(params, cfg, _t(tokens[:, :S]), memory=_t(mem),
+                              cache_len=None if rings else S + 3)[1]
+
+    want, caches = prefill(), prefill()
+    ptrs = [x.data_ptr() for x in tree_leaves(caches)]
+    for i in range(3):
+        tok = _t(tokens[:, S + i:S + i + 1])
+        w_logits, want = _functional_decode_step(params, cfg, want, tok,
+                                                 S + i)
+        logits, got = tmodel.decode_step(
+            params, cfg, caches, tok, torch.tensor(S + i, dtype=torch.int32))
+        assert got is caches
+        assert torch.equal(logits, w_logits), i
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            assert g.dtype == w.dtype and torch.equal(g, w), i
+        assert [x.data_ptr() for x in tree_leaves(got)] == ptrs

@@ -12,6 +12,11 @@
   bf16 rounding boundary they differ by one bf16 unit, so bf16 leaves are
   held within one unit of the last place, and the f32 moments behind
   them within 1e-6.
+* ``adamw_update_`` (the train step's update on donated arguments) over
+  20 steps, with and without clipping, f32 and bf16 leaves: written into
+  the parameters, m, v and step it is given, which it returns; the
+  functional ``adamw_update`` (it, run on copies) leaves its inputs as
+  they were and gives the same bits.
 * ``SyntheticTokens``: bit for bit (numpy in both).
 * Every config: ``dataclasses.asdict``, ``n_params``,
   ``n_active_params``, ``smoke()`` and ``SHAPES`` equal.
@@ -117,6 +122,37 @@ def test_adamw_20_steps_matches_repro(bf16, clip):
                 assert (np.abs(got - want) <= _bf16_ulp(want)).all()
             else:
                 _close(got, want, "params")
+
+
+@pytest.mark.parametrize("clip", [1.0, 1e3])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_adamw_update_in_place_is_adamw_update_bit_for_bit(bf16, clip):
+    rng = np.random.default_rng(11)
+    p0, dtypes = _params(rng, bf16)
+    cfg = topt.AdamWConfig(lr=1e-2, weight_decay=0.1, grad_clip=clip)
+    fp = _to(p0, dtypes, "torch")
+    fs = topt.adamw_init(fp)
+    dp = _to(p0, dtypes, "torch")
+    ds = topt.adamw_init(dp)
+    donated = [x for t in (dp, ds) for x in _leaves(t, "torch")]
+    for _ in range(20):
+        g, _ = _params(rng, False)
+        tg = _to(g, dtypes, "torch")
+        before = [x.clone() for x in _leaves((fp, fs, tg), "torch")]
+        scale = topt.cosine_schedule(fs.step, warmup=5, total=20)
+        fp2, fs2 = topt.adamw_update(cfg, tg, fp, fs, scale)
+        # the functional update leaves its inputs as they were
+        for a, b in zip(_leaves((fp, fs, tg), "torch"), before):
+            assert torch.equal(a, b)
+        fp, fs = fp2, fs2
+        got = topt.adamw_update_(cfg, tg, dp, ds,
+                                 topt.cosine_schedule(ds.step, 5, 20))
+        assert got[0] is dp and got[1] is ds
+        for a, b in zip(_leaves((dp, ds), "torch"),
+                        _leaves((fp, fs), "torch")):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert all(a is b for a, b in zip(
+        donated, [x for t in (dp, ds) for x in _leaves(t, "torch")]))
 
 
 def test_adamw_rejects_mismatched_trees():

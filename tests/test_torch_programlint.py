@@ -6,7 +6,10 @@ passes once (a module fixture): its program audit must be clean, with
 the JAX auditor's program names, shape and dispatch estimates (the JAX
 audit runs once, without lowering, in a module fixture). Controls: a
 ``.item()``, a ``.nonzero()``, a ``.double()`` and an int64 state leaf
-are each caught, and an int64 index made by a conversion is not.
+are each caught, and an int64 index made by a conversion is not. The
+model zoo's decode step (``model_steps``): no host sync, its caches
+written in place (0 copy-back bytes); a decode body that reads
+``int(pos)`` is flagged by the auditor and the linter.
 ``estimate_dispatches`` equals the JAX package's over a grid and the
 port engine's counted dispatches at K = 1, 2 and 8.
 """
@@ -20,6 +23,7 @@ import repro.analysis.jaxprlint as jlint
 import repro_torch.core.simulator as tsim
 from repro_torch.analysis.__main__ import main
 from repro_torch.analysis.programlint import (BANNED_OPS, audit_callable,
+                                              decode_control,
                                               estimate_dispatches)
 from repro_torch.core import RSMConfig, SimConfig
 
@@ -81,6 +85,27 @@ def test_audit_reports_bytes_and_no_launch_check_on_the_cpu(cli):
             assert prog["copy_back_bytes"] == prog["arg_bytes"][0]
         assert prog["launches"] is None and prog["launches_no_lost"] is None
         assert "gather" in prog["ops"] and "_to_copy" in prog["ops"]
+
+
+def test_audit_holds_the_decode_step(cli):
+    """The decode step beside the engine's programs: clean, its cache
+    leaves written in place (copy-back 0 of their bytes), widenings not
+    held (reported)."""
+    (prog,) = cli[1]["jaxpr"]["model_steps"]
+    assert prog["name"] == "decode" and prog["ok"]
+    assert prog["host_syncs"] == [] and prog["cpu_operands"] == []
+    assert prog["arg_bytes"][0] > 0 and prog["arg_bytes"][1] == 4
+    assert prog["copy_back_bytes"] == 0 and prog["max_copy_back"] == 0
+    assert not prog["hold_widenings"] and prog["launches"] is None
+    assert "index_copy_" in prog["ops"] and "bmm" in prog["ops"]
+
+
+def test_audit_and_lint_flag_a_decode_body_reading_int_pos():
+    rules, audit = decode_control("cpu")
+    assert rules == ["host-sync"]
+    assert not audit.ok
+    assert any("_local_scalar_dense" in v for v in audit.violations()), \
+        audit.violations()
 
 
 def _state():

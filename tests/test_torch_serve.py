@@ -9,6 +9,15 @@ and 16 decode steps of a batch of 4 32-token prompts, every config at
 ``.smoke()`` (f32). Also the
 launcher's CLI and prints on the CPU, ``parse_mesh``, and the rule that the
 launcher needs a card unless ``--device`` names another.
+
+``launch.steps.decode``, the decode step ``generate`` takes (one
+captured graph a step on the card), on the CPU, where its program set
+runs the body eagerly: the caches given are consumed into the set's
+buffers, which come back at the same addresses every step; its logits
+and caches are ``decode_step``'s bit for bit; a second generation on the
+same weights takes the same set, other weights another. Generations
+that interleave decode on sets of their own, each its own functional
+step bit for bit, and a held set refuses a load.
 """
 
 import argparse
@@ -96,3 +105,87 @@ def test_parse_mesh(spec, shape):
     assert mesh.shape == shape
     assert mesh.axis_names == tuple(shape)
     assert mesh.device == torch.device("cpu")
+
+
+def test_decode_step_keeps_its_caches_in_its_program_set():
+    from repro_torch.core import graphs
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.tree_util import tree_leaves, tree_map
+    cfg = t_get_config("granite-8b-smoke")
+    params = M.init_model(cfg, 0, device="cpu")
+    plen = 8
+    prompts = torch.from_numpy(SyntheticTokens(
+        vocab=cfg.vocab, seq_len=plen, global_batch=2,
+        seed=3).batch_at(0)["tokens"])
+    graphs.clear_programs()
+    first = graphs.first_use_count()
+    kept = None
+    for _ in range(2):
+        _, caches = M.prefill(params, cfg, prompts, cache_len=plen + 3)
+        want = tree_map(torch.clone, caches)
+        given = [x.data_ptr() for x in tree_leaves(caches)]
+        tok = prompts[:, -1:]
+        for i in range(3):
+            logits, caches = steps.decode(params, cfg, caches, tok, plen + i)
+            w_logits, want = M.decode_step(params, cfg, want, tok, plen + i)
+            assert torch.equal(logits, w_logits)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(caches), tree_leaves(want)))
+            now = [x.data_ptr() for x in tree_leaves(caches)]
+            assert not set(now) & set(given)      # consumed into the set
+            kept = kept or now
+            assert now == kept
+            tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    assert graphs.first_use_count() == first + 1
+    other = tree_map(torch.clone, params)
+    _, caches = M.prefill(other, cfg, prompts, cache_len=plen + 3)
+    steps.decode(other, cfg, caches, prompts[:, -1:], plen)
+    assert graphs.first_use_count() == first + 2
+    graphs.clear_programs()
+
+
+def test_interleaved_generations_decode_on_sets_of_their_own():
+    """Three generations of one key decoding in turn: each holds a set of
+    its own while its caches live, so each step is its own generation's
+    functional step, bit for bit; a set that is held refuses a load; once
+    they end, a new generation takes a set it left and captures nothing,
+    and ``DECODE_SETS`` idle sets stay cached."""
+    from repro_torch.core import graphs
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.tree_util import tree_leaves, tree_map
+    cfg = t_get_config("granite-8b-smoke")
+    params = M.init_model(cfg, 0, device="cpu")
+    plen, n = 8, 3
+    rng = np.random.default_rng(5)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, (2, plen))
+                                .astype(np.int32)) for _ in range(n)]
+    graphs.clear_programs()
+    first = graphs.first_use_count()
+    caches = [M.prefill(params, cfg, p, cache_len=plen + 3)[1]
+              for p in prompts]
+    want = [tree_map(torch.clone, c) for c in caches]
+    toks = [p[:, -1:] for p in prompts]
+    for i in range(3):
+        for g in range(n):
+            logits, caches[g] = steps.decode(params, cfg, caches[g],
+                                             toks[g], plen + i)
+            w_logits, want[g] = M.decode_step(params, cfg, want[g],
+                                              toks[g], plen + i)
+            assert torch.equal(logits, w_logits), (i, g)
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(caches[g]), tree_leaves(want[g]))), (i, g)
+            toks[g] = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    assert graphs.first_use_count() == first + n
+    sets = graphs.cached_sets()
+    assert len(sets) == n and all(ps.held() for ps in sets)
+    with pytest.raises(RuntimeError, match="lent"):
+        sets[0].load(tuple(tree_leaves(want[0])))
+    del caches, sets
+    _, fresh = M.prefill(params, cfg, prompts[0], cache_len=plen + 3)
+    logits, fresh = steps.decode(params, cfg, fresh, toks[0], plen)
+    assert graphs.first_use_count() == first + n
+    held = [ps.held() for ps in graphs.cached_sets()]
+    assert sorted(held) == [False] * steps.DECODE_SETS + [True]
+    graphs.clear_programs()

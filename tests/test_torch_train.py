@@ -16,7 +16,10 @@ much. A fault of the port's backward shows in its f32 and f64 runs alike,
 so it cannot widen the limit.
 
 Also: ``build_train_step`` over three steps on a ``"1x1"`` mesh against
-the JAX package's (f32, 1e-4 of each leaf's largest magnitude), the spec
+the JAX package's (f32, 1e-4 of each leaf's largest magnitude) and, bit
+for bit, against ``value_and_grad`` then the functional ``adamw_update``
+with the parameters and AdamW state donated (updated in place, every
+leaf keeping its storage, as ``donate_argnums=(0, 1)``), the spec
 trees at full size (shapes, dtypes, names equal), ``spec_for`` /
 ``rules_for`` at the production meshes (2, 16, 16) and (16, 16) through a
 stand-in with a ``shape`` dict (JAX's planner reads nothing else), remat
@@ -212,6 +215,36 @@ def test_build_train_step_three_steps_match_jax():
     assert int(topt.step) == int(jopt.step) == 3
     for got, want in ((tp, params), (topt.m, jopt.m), (topt.v, jopt.v)):
         assert max(_leaf_errs(got, jax.device_get(want)).values()) <= TOL
+
+
+def test_build_train_step_donates_params_and_opt_state():
+    """Three steps of the port's ``build_train_step`` (granite-8b smoke,
+    f32, warmup 1) against ``value_and_grad`` then the functional
+    ``adamw_update`` at ``cosine_schedule`` on copies: parameters, m, v
+    and step bit for bit; the step returns the trees it was given, each
+    leaf written in place."""
+    _, tcfg = _cfgs("granite-8b")
+    params = tmodel.init_model(tcfg, 0, device="cpu")
+    bundle = tsteps.build_train_step(tcfg, tmesh.parse_mesh("1x1", "cpu"),
+                                     ShapeSpec("train", 32, 4, "train"),
+                                     warmup=1, total_steps=10)
+    ref_p = tree_map(torch.clone, params)
+    ref_s = toptim.adamw_init(ref_p)
+    opt = toptim.adamw_init(params)
+    ptrs = [x.data_ptr() for x in tree_leaves((params, opt))]
+    for b in _steps_batches(get_config("granite-8b").smoke(), 3):
+        batch = _t(b)
+        _, grads = tsteps.value_and_grad(ref_p, tcfg, batch)
+        ref_p, ref_s = toptim.adamw_update(
+            toptim.AdamWConfig(), grads, ref_p, ref_s,
+            toptim.cosine_schedule(ref_s.step, 1, 10))
+        got_p, got_s, _ = bundle(params, opt, batch)
+        assert got_p is params and got_s is opt
+        for a, w in zip(tree_leaves((params, opt)),
+                        tree_leaves((ref_p, ref_s))):
+            assert a.dtype == w.dtype and torch.equal(a, w)
+    assert int(opt.step) == 3
+    assert [x.data_ptr() for x in tree_leaves((params, opt))] == ptrs
 
 
 # ------------------------------------------------------------ spec trees
